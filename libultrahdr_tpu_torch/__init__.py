@@ -6,7 +6,9 @@ PyTorch and every TPU kernel on a ported path rewritten by hand for Hopper
 (``csrc/``).  It imports torch and numpy, never jax and nothing under
 ``libultrahdr_tpu``; the native host C++ of the JAX package is compiled by
 path (``jpeg/native.py``).  Ported so far: the API-0 P010 encode
-(``UhdrEncoder(device=...)``); ROADMAP.md lists the slices still to come.
+(``UhdrEncoder(device=...)``) and the fused JPEG_R decode to HLG, PQ or
+LINEAR output (``UhdrDecoder(device=...)``, ``JpegR.decode``,
+``JpegR.decode_to_device``); ROADMAP.md lists the slices still to come.
 
 The tensor math runs in full float32: TF32 matrix products and convolutions
 are turned off here, because the JAX package runs its DCT at HIGHEST
@@ -23,5 +25,5 @@ torch.backends.cudnn.allow_tf32 = False
 from .errors import UhdrError, UhdrErrorCode  # noqa: E402,F401
 from .types import (ColorGamut, ColorRange, ColorTransfer,  # noqa: E402,F401
                     GainMapMetadata, ImgFmt, ImgLabel, RawImage)
-from .api import UhdrEncoder  # noqa: E402,F401
+from .api import UhdrDecoder, UhdrEncoder  # noqa: E402,F401
 from .jpegr import JpegR  # noqa: E402,F401

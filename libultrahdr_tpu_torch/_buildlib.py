@@ -2,7 +2,8 @@
 
 Both the shared host C++ (the restart-row joiner and the scan decoder, compiled
 by path from ``libultrahdr_tpu/jpeg/_native``) and the CUDA kernels under
-``csrc/`` are compiled on first use into ``libultrahdr_tpu_torch/_build/``,
+``csrc/`` (each through ``build_cuda``, one nvcc command line for all) are
+compiled on first use into ``libultrahdr_tpu_torch/_build/``,
 a directory that ``.gitignore`` lists.  Each library is keyed by a hash of its
 sources and its command line, so an edited source rebuilds.  A file lock makes
 concurrent first uses (test workers, several processes on one checkout) build
@@ -11,11 +12,14 @@ once; the finished library is moved into place atomically.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
 import pathlib
+import shutil
 import subprocess
+import time
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
@@ -53,3 +57,35 @@ def build_shared(name: str, sources: list[pathlib.Path],
             return so, proc.stderr
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def nvcc() -> str:
+    """The CUDA compiler: nvcc on PATH, else under CUDA_HOME (default
+    /usr/local/cuda)."""
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build_cuda(name: str, source: pathlib.Path):
+    """Compile one ``csrc/*.cu`` file with nvcc for sm_90a into a shared
+    library with a plain C interface and load it.  ``-Xptxas -v`` makes the
+    build log carry each kernel's registers, shared memory and spills.
+
+    Returns (ctypes library, build log, seconds).  Every kernel source
+    exports ``uhdr_cuda_error_string``, which is bound here."""
+    t0 = time.perf_counter()
+    so, log = build_shared(
+        name, [source],
+        [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"])
+    lib = ctypes.CDLL(str(so))
+    lib.uhdr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.uhdr_cuda_error_string.restype = ctypes.c_char_p
+    return lib, log, time.perf_counter() - t0
+
+
+def check_launch(lib, rc: int, what: str):
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.uhdr_cuda_error_string(rc).decode()}")

@@ -1,8 +1,11 @@
-"""API-0 P010 encode on one device: raw P010 planes in, JPEG_R bytes out.
+"""The fused single-device programs: the API-0 P010 encode and the decode.
 
-Port of the P010 half of ``libultrahdr_tpu/fused.py`` with a raw upload
-(the JAX ``_fused_api0_p010``; the vw/delta upload wires stay unported).
-On the device, in eager PyTorch plus the hand-written pack kernel:
+Port of the P010 encode and the single-image decode of
+``libultrahdr_tpu/fused.py``, with raw transfers (the vw/delta upload wires,
+the coefficient wires and the download wire stay unported).
+
+**Encode** (the JAX ``_fused_api0_p010``): raw P010 planes in, JPEG_R bytes
+out.  On the device, in eager PyTorch plus the hand-written pack kernel:
 
 1. P010 unpack                          (ops/pixel.unpack_p010)
 2. tone map to 4:2:0 SDR                (ops/tonemap.tonemap_to_yuv)
@@ -17,6 +20,21 @@ restart rows (native.join_blocks, shared C++), writes the JPEG headers
 (jpeg/encoder.assemble_jpeg) and the MPF/ISO container
 (container/jpegr_container.append_gainmap).  Both JPEGs carry one restart
 interval per MCU row, as the JAX package's fused encode does.
+
+**Decode** (the JAX ``_decode_device_core``): the host splits and parses the
+file and Huffman-decodes both scans (``decode_coefficients``, shared C++),
+uploads the raw int16 coefficient planes (``upload_coeff_planes``), and the
+device runs, in eager PyTorch plus the hand-written apply kernel:
+
+1. dequantisation and the bit-exact islow IDCT of every plane
+                                        (jpeg/dct.inverse_plane)
+2. chroma replication of the base       (ops/pixel.unpack_yuv8)
+3. the gain map's YCbCr->RGB for a 3-channel map (jpeg/decoder._ycc_to_rgb)
+4. the IDW upsample at scale > 1 and the apply-gainmap with the output
+   packing                              (ops/apply.apply_gainmap_core)
+
+The JAX ``_fused_decode`` is the jit wrapper of the same core; eager
+PyTorch needs none.
 """
 
 from __future__ import annotations
@@ -27,9 +45,12 @@ import torch
 from .container import icc as icc_mod
 from .container import jpegr_container
 from .jpeg import device_entropy, native, pack_kernel
-from .jpeg.dct import forward_plane
+from .jpeg.dct import forward_plane, inverse_plane
+from .jpeg.decoder import (_validate, _ycc_to_rgb, get_output_sampling_format,
+                           require_qtable)
 from .jpeg.encoder import assemble_jpeg
 from .jpeg.tables import STD_CHROMA_QUANT, STD_LUMA_QUANT, scaled_quant_table
+from .ops import apply as apply_ops
 from .ops import colors, gainmap as gainmap_ops, pixel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, GainMapMetadata,
@@ -225,3 +246,74 @@ def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
     return _assemble_container(jr, img.w, img.h, quality, base_scan,
                                _SAMPLING_420, ColorGamut.DISPLAY_P3, scale,
                                gm_scan, metadata, exif, ct, cg)
+
+
+# ---------------------------------------------------------------------------
+# decode
+
+# chroma subsampling (h, v) of the base per sampling key
+DECODE_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
+
+
+def decode_coefficients(data: bytes, info):
+    """Host Huffman decode to MCU-padded coefficient arrays + natural-order
+    quant tables per component (the jpeg/decoder.py front half, without the
+    device IDCT)."""
+    _validate(info)
+    fmt = get_output_sampling_format(info) if info.num_components > 1 \
+        else ImgFmt.YUV400
+    hmax = max(c.h for c in info.components)
+    vmax = max(c.v for c in info.components)
+    mcus_w = -(-info.width // (8 * hmax))
+    mcus_h = -(-info.height // (8 * vmax))
+    comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
+             for c in info.components]
+    dc = [info.dc_tables.get(i) for i in range(4)]
+    ac = [info.ac_tables.get(i) for i in range(4)]
+    coeffs, _ = native.decode_scan(data[info.scan_offset:], comps, mcus_w,
+                                   mcus_h, dc, ac, info.restart_interval)
+    qts = [np.asarray(require_qtable(info, c), np.int32)
+           for c in info.components]
+    return coeffs, qts, fmt
+
+
+def upload_coeff_planes(planes, device: torch.device):
+    """Raw upload of (bh, bw, 64) int16 coefficient planes, one copy each."""
+    return [torch.from_numpy(np.ascontiguousarray(c, np.int16)).to(device)
+            for c in planes]
+
+
+def _decode_sdr_and_gain(base_coeffs, base_qts, gm_coeffs, gm_qts, *, h: int,
+                         w: int, sampling_key: str, gm_channels: int,
+                         scale_k: int):
+    """Coefficient planes on the device -> (SDR YUV (3,h,w) float32, gain
+    map (C, h/k, w/k) uint8): dequant + islow IDCT of both images, chroma
+    replication of the base, YCbCr->RGB of a 3-channel map."""
+    hf, vf = DECODE_SAMPLING[sampling_key]
+    planes = [inverse_plane(c, q, -(-h // (vf if i else 1)),
+                            -(-w // (hf if i else 1)))
+              for i, (c, q) in enumerate(zip(base_coeffs, base_qts))]
+    sdr_yuv = pixel.unpack_yuv8(planes[0], planes[1], planes[2], hf, vf, h, w)
+    mh, mw = h // scale_k, w // scale_k
+    gm = [inverse_plane(c, q, mh, mw) for c, q in zip(gm_coeffs, gm_qts)]
+    gm_u8 = gm[0][None] if gm_channels == 1 \
+        else _ycc_to_rgb(gm[0], gm[1], gm[2], "444", mh, mw)
+    return sdr_yuv, gm_u8
+
+
+def _decode_device_core(base_coeffs, base_qts, gm_coeffs, gm_qts,
+                        meta_arrays, weight, *, h: int, w: int,
+                        sampling_key: str, gm_channels: int, scale_k: int,
+                        out_ct: ColorTransfer, sdr_cg: ColorGamut,
+                        hdr_cg: ColorGamut, use_base_cg: bool):
+    """Device half of decode on the coefficients' device: dequant + IDCT of
+    base and gain map + apply-gainmap + output packing (the
+    jpegr.cpp:1384-1699 pipeline with the entropy decode left on host).
+    Returns (packed output, gain map u8 (C, mh, mw))."""
+    sdr_yuv, gm_u8 = _decode_sdr_and_gain(
+        base_coeffs, base_qts, gm_coeffs, gm_qts, h=h, w=w,
+        sampling_key=sampling_key, gm_channels=gm_channels, scale_k=scale_k)
+    packed = apply_ops.apply_gainmap_core(
+        sdr_yuv, gm_u8, meta_arrays, scale_k=scale_k, weight=weight,
+        out_ct=out_ct, sdr_cg=sdr_cg, hdr_cg=hdr_cg, use_base_cg=use_base_cg)
+    return packed, gm_u8

@@ -1,11 +1,20 @@
-"""Batched 8x8 forward DCT and quantisation in PyTorch.
+"""Batched 8x8 DCTs in PyTorch: the forward float DCT of the encode and the
+bit-exact islow IDCT of the decode.
 
-Port of ``libultrahdr_tpu/jpeg/dct.py`` ``forward_plane``: each plane is
-reshaped to expose the two 8-point axes and transformed with two small
-float32 matrix products, then quantised (round half to even, like libjpeg
-ISLOW's descale) and zigzag-reordered.  The products run in full float32:
-the package turns TF32 off (``libultrahdr_tpu_torch/__init__.py``), as the
-JAX package runs this at HIGHEST precision.
+Port of ``libultrahdr_tpu/jpeg/dct.py``:
+
+- ``forward_plane``: each plane is reshaped to expose the two 8-point axes
+  and transformed with two small float32 matrix products, then quantised
+  (round half to even, like libjpeg ISLOW's descale) and zigzag-reordered.
+  The products run in full float32: the package turns TF32 off
+  (``libultrahdr_tpu_torch/__init__.py``), as the JAX package runs this at
+  HIGHEST precision.
+- ``inverse_plane``: dequantisation, libjpeg's jpeg_idct_islow butterfly and
+  its range-limit table, entirely in int32 tensor ops.  torch's int32
+  arithmetic wraps in two's complement on the CPU and on CUDA, ``>>`` on
+  int32 is an arithmetic shift and ``&`` acts on the two's-complement
+  pattern, so the result equals libjpeg (and the JAX package) bit for bit,
+  including on adversarial coefficients whose products overflow int32.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from .tables import ZIGZAG_ORDER
+from .tables import INV_ZIGZAG, ZIGZAG_ORDER
 
 
 @functools.lru_cache(maxsize=1)
@@ -47,3 +56,98 @@ def forward_plane(plane_u8: torch.Tensor, qtable_natural) -> torch.Tensor:
     flat = quant.reshape(h // 8, w // 8, 64)
     return flat[..., torch.as_tensor(ZIGZAG_ORDER, dtype=torch.long,
                                      device=dev)]
+
+
+def unblockify(blocks: torch.Tensor) -> torch.Tensor:
+    """(bh, bw, 8, 8) -> (bh*8, bw*8)."""
+    bh, bw = blocks.shape[0], blocks.shape[1]
+    return blocks.permute(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+
+
+# Loeffler-Ligtenberg-Moshovitz fixed-point constants at CONST_BITS=13, the
+# scaled 13-bit roundings of every libjpeg islow build: round(f * 8192)
+_K0_298631336 = 2446
+_K0_390180644 = 3196
+_K0_541196100 = 4433
+_K0_765366865 = 6270
+_K0_899976223 = 7373
+_K1_175875602 = 9633
+_K1_501321110 = 12299
+_K1_847759065 = 15137
+_K1_961570560 = 16069
+_K2_053119869 = 16819
+_K2_562915447 = 20995
+_K3_072711026 = 25172
+
+
+def _islow_butterfly(s):
+    """One 1-D islow pass over 8 parallel int32 tensors, WITHOUT the final
+    descale: the 8 outputs scaled by 2^13 relative to the inputs, in
+    libjpeg's int32 operation sequence (so any wrap-around matches it)."""
+    s0, s1, s2, s3, s4, s5, s6, s7 = s
+    # even part
+    z1 = (s2 + s6) * _K0_541196100
+    e2 = z1 - s6 * _K1_847759065
+    e3 = z1 + s2 * _K0_765366865
+    e0 = (s0 + s4) * 8192
+    e1 = (s0 - s4) * 8192
+    t10, t13 = e0 + e3, e0 - e3
+    t11, t12 = e1 + e2, e1 - e2
+    # odd part
+    t0, t1, t2, t3 = s7, s5, s3, s1
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _K1_175875602
+    t0 = t0 * _K0_298631336
+    t1 = t1 * _K2_053119869
+    t2 = t2 * _K3_072711026
+    t3 = t3 * _K1_501321110
+    z1 = z1 * -_K0_899976223
+    z2 = z2 * -_K2_562915447
+    z3 = z3 * -_K1_961570560 + z5
+    z4 = z4 * -_K0_390180644 + z5
+    t0 = t0 + z1 + z3
+    t1 = t1 + z2 + z4
+    t2 = t2 + z2 + z3
+    t3 = t3 + z1 + z4
+    return (t10 + t3, t11 + t2, t12 + t1, t13 + t0,
+            t13 - t0, t12 - t1, t11 - t2, t10 - t3)
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    """libjpeg DESCALE: round-half-up arithmetic shift."""
+    return (x + (1 << (n - 1))) >> n
+
+
+def idct8x8_islow(deq: torch.Tensor) -> torch.Tensor:
+    """Bit-exact libjpeg jpeg_idct_islow on int32 dequantised blocks
+    (..., 8, 8) -> int32 spatial samples (callers add 128 and range-limit).
+    Pass 1 over columns keeps PASS1_BITS=2 (descale 11), pass 2 over rows
+    descales by 18."""
+    t = _islow_butterfly([deq[..., u, :] for u in range(8)])
+    t = torch.stack([_descale(x, 11) for x in t], dim=-2)
+    o = _islow_butterfly([t[..., :, v] for v in range(8)])
+    return torch.stack([_descale(x, 18) for x in o], dim=-1)
+
+
+def range_limit(sample: torch.Tensor) -> torch.Tensor:
+    """libjpeg's post-IDCT range_limit table (jdmaster.c
+    prepare_range_limit_table) in closed form over `sample` = IDCT output
+    + 128: m = sample & 1023 (two's complement, so negatives wrap mod
+    1024), then m < 256 -> m, m < 640 -> 255, else 0."""
+    m = sample & 1023
+    return torch.where(m < 256, m, torch.where(m < 640, 255, 0))
+
+
+def inverse_plane(zz_coeffs: torch.Tensor, qtable_natural,
+                  out_h: int, out_w: int) -> torch.Tensor:
+    """(bh, bw, 64) int16 zigzag coefficients -> uint8 (out_h, out_w) plane,
+    bit-identical to libjpeg's islow decode."""
+    dev = zz_coeffs.device
+    inv = torch.as_tensor(INV_ZIGZAG, dtype=torch.long, device=dev)
+    q = torch.as_tensor(np.asarray(qtable_natural, np.int32).reshape(64),
+                        device=dev)
+    deq = zz_coeffs[..., inv].to(torch.int32) * q
+    spatial = idct8x8_islow(deq.reshape(*deq.shape[:-1], 8, 8)) + 128
+    plane = unblockify(range_limit(spatial).to(torch.uint8))
+    return plane[:out_h, :out_w]

@@ -27,15 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
 import threading
-import time
 
 import numpy as np
 import torch
 
-from .._buildlib import PKG_DIR, build_shared
+from .._buildlib import PKG_DIR, build_cuda, check_launch
 from ..errors import unsupported
 from .tables import AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA
 
@@ -136,11 +133,6 @@ def pack_scan_plain(stream: torch.Tensor, dc_diff: torch.Tensor,
     return _u32_bits_as_i32(words[:total]), blen.to(torch.int32)
 
 
-def _nvcc() -> str:
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
 class _PackKernel:
     """Wrapper of csrc/pack_kernel.cu: build at first use, per-device
     tables, launch, launch count."""
@@ -159,13 +151,8 @@ class _PackKernel:
         """Compile (or load the cached) kernel library; returns it."""
         with self._lock:
             if self._lib is None:
-                t0 = time.perf_counter()
-                so, self.build_log = build_shared(
-                    "pack_kernel", [self.SOURCE],
-                    [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                     "-Xcompiler", "-fPIC"])
-                lib = ctypes.CDLL(str(so))
+                lib, self.build_log, self.build_seconds = build_cuda(
+                    "pack_kernel", self.SOURCE)
                 args = [ctypes.c_void_p] * 4
                 lib.uhdr_pack_blen.argtypes = args + [
                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
@@ -174,9 +161,6 @@ class _PackKernel:
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                     ctypes.c_void_p]
                 lib.uhdr_pack_words.restype = ctypes.c_int
-                lib.uhdr_cuda_error_string.argtypes = [ctypes.c_int]
-                lib.uhdr_cuda_error_string.restype = ctypes.c_char_p
-                self.build_seconds = time.perf_counter() - t0
                 self._lib = lib
         return self._lib
 
@@ -185,11 +169,6 @@ class _PackKernel:
             self._luts[dev] = torch.from_numpy(
                 packed_luts().view(np.int32)).to(dev)
         return self._luts[dev]
-
-    def _check(self, lib, rc: int, what: str):
-        if rc != 0:
-            raise RuntimeError(f"{what} launch failed: "
-                               f"{lib.uhdr_cuda_error_string(rc).decode()}")
 
     def __call__(self, stream: torch.Tensor, dc_diff: torch.Tensor,
                  is_luma: torch.Tensor):
@@ -213,14 +192,14 @@ class _PackKernel:
         lut = self._lut(dev)
         cs = torch.cuda.current_stream(dev).cuda_stream
         blen = torch.empty(n, dtype=torch.int32, device=dev)
-        self._check(lib, lib.uhdr_pack_blen(
+        check_launch(lib, lib.uhdr_pack_blen(
             stream.data_ptr(), dc_diff.data_ptr(), is_luma.data_ptr(),
             lut.data_ptr(), blen.data_ptr(), n, cs), "uhdr_pack_blen")
         wlen = (blen.to(torch.int64) + 31) >> 5
         dest = torch.cumsum(wlen, 0) - wlen
         total = int(wlen.sum())
         words = torch.empty(total, dtype=torch.int32, device=dev)
-        self._check(lib, lib.uhdr_pack_words(
+        check_launch(lib, lib.uhdr_pack_words(
             stream.data_ptr(), dc_diff.data_ptr(), is_luma.data_ptr(),
             lut.data_ptr(), dest.data_ptr(), words.data_ptr(), n, cs),
             "uhdr_pack_words")

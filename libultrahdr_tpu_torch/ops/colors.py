@@ -1,7 +1,8 @@
 """Colour science primitives used by the tone map and the gain map.
 
 Port of the parts of ``libultrahdr_tpu/ops/colors.py`` that the API-0 encode
-runs: transfer functions, gamut and YUV matrices, luminance.  Channels lie on
+and the fused decode run: transfer functions, gamut and YUV matrices,
+luminance, clamps.  Channels lie on
 the leading axis, shape (3, ...); the 3x3 conversions are unrolled float32
 multiply-adds in the same order as the JAX package.  The matrices are the
 reference's rounded values (gainmapmath.cpp:603-674), copied unchanged.
@@ -18,6 +19,9 @@ from ..types import ColorGamut, ColorTransfer
 SDR_WHITE_NITS = 203.0
 HLG_MAX_NITS = 1000.0
 PQ_MAX_NITS = 10000.0
+
+# maximum normalized pixel value for linear-HDR float intent (gainmapmath.h:577)
+MAX_PIXEL_FLOAT_HDR_LINEAR = PQ_MAX_NITS / SDR_WHITE_NITS
 
 
 def reference_display_peak_nits(ct) -> float:
@@ -123,6 +127,14 @@ def srgb_oetf(e: torch.Tensor) -> torch.Tensor:
 _HLG_A, _HLG_B, _HLG_C = 0.17883277, 0.28466892, 0.55991073
 
 
+def hlg_oetf(e: torch.Tensor) -> torch.Tensor:
+    """HLG OETF, ITU-R BT.2100-2 Table 5 (gainmapmath.cpp:238-247)."""
+    lo = torch.sqrt(torch.clamp(3.0 * e, min=0.0))
+    hi = _HLG_A * torch.log(torch.clamp(12.0 * e - _HLG_B, min=1e-37)) \
+        + _HLG_C
+    return torch.where(e <= 1.0 / 12.0, lo, hi)
+
+
 def hlg_inv_oetf(e_gamma: torch.Tensor) -> torch.Tensor:
     """HLG inverse OETF (gainmapmath.cpp:262-270)."""
     lo = torch.square(e_gamma) / 3.0
@@ -144,6 +156,13 @@ _PQ_M2 = 2523.0 / 4096.0 * 128.0
 _PQ_C1 = 3424.0 / 4096.0
 _PQ_C2 = 2413.0 / 4096.0 * 32.0
 _PQ_C3 = 2392.0 / 4096.0 * 32.0
+
+
+def pq_oetf(e: torch.Tensor) -> torch.Tensor:
+    """PQ OETF, ITU-R BT.2100-2 Table 4 (gainmapmath.cpp:313-318)."""
+    ep = torch.pow(torch.clamp(e, min=0.0), _PQ_M1)
+    v = torch.pow((_PQ_C1 + _PQ_C2 * ep) / (1.0 + _PQ_C3 * ep), _PQ_M2)
+    return torch.where(e <= 0.0, 0.0, v)
 
 
 def pq_inv_oetf(e_gamma: torch.Tensor) -> torch.Tensor:
@@ -226,3 +245,7 @@ def clip_negatives(x: torch.Tensor) -> torch.Tensor:
 
 def clamp_pixel_float(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 1.0)
+
+
+def clamp_pixel_float_linear(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, MAX_PIXEL_FLOAT_HDR_LINEAR)

@@ -1,0 +1,102 @@
+"""Shepard's inverse-distance-weighted gain map upsampling, integer factors.
+
+Port of ``libultrahdr_tpu/ops/idw.py`` (ShepardsIDW / sampleMap /
+sampleMap3Channel, gainmapmath.cpp:39-80, 871-1080) for the single-device
+integer-factor path.  Each output pixel blends its 4 neighbouring map texels
+with per-offset weight tables; the 4 neighbour fields are built densely (the
+map nearest-replicated to full resolution, the "upper" variants shifted by
+one texel with edge clamping first) and blended with weight fields tiled from
+the (k, k, 4) Shepard tables, in the JAX package's order of float32 sums.
+The row-sharded and fractional variants are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=32)
+def shepards_weight_tables(k: int) -> np.ndarray:
+    """fillShepardsIDW (gainmapmath.cpp:43-80) for all 4 tables.
+
+    Returns (4, k, k, 4): [table(D,NR,NB,C), off_y, off_x, neighbor(e1..e4)].
+    """
+    out = np.zeros((4, k, k, 4), np.float32)
+    for t, (inc_r, inc_b) in enumerate([(1, 1), (0, 1), (1, 0), (0, 0)]):
+        for y in range(k):
+            for x in range(k):
+                px, py = x / k, y / k
+                cx, cy = 0.0, 0.0
+                nx, ny = cx + inc_r, cy + inc_b
+                d1 = np.hypot(px - cx, py - cy)
+                if d1 == 0.0:
+                    out[t, y, x] = [1.0, 0.0, 0.0, 0.0]
+                else:
+                    w = np.array([1.0 / d1,
+                                  1.0 / np.hypot(px - cx, py - ny),
+                                  1.0 / np.hypot(px - nx, py - cy),
+                                  1.0 / np.hypot(px - nx, py - ny)], np.float32)
+                    out[t, y, x] = w / w.sum()
+    return out
+
+
+def _shift_clamp(m: torch.Tensor, dim: int) -> torch.Tensor:
+    """Shift by one map texel toward the end with edge clamping:
+    index i of the result is index min(i+1, n-1) of the input."""
+    n = m.shape[dim]
+    return torch.cat([m.narrow(dim, 1, n - 1), m.narrow(dim, n - 1, 1)],
+                     dim=dim)
+
+
+def _tile_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Tile a (k, k) pattern to cover (h, w)."""
+    k = x.shape[0]
+    return x.repeat(-(-h // k), -(-w // k))[:h, :w]
+
+
+def _replicate(m: torch.Tensor, k: int, h: int, w: int) -> torch.Tensor:
+    """(C, mh, mw) -> (C, h, w) nearest replication by k."""
+    return torch.repeat_interleave(torch.repeat_interleave(m, k, dim=1),
+                                   k, dim=2)[:, :h, :w]
+
+
+def _idw_core(gainmap: torch.Tensor, down: torch.Tensor, k: int,
+              out_h: int, out_w: int, rr: torch.Tensor) -> torch.Tensor:
+    """IDW evaluation: `down` is the next-map-row field and `rr` the
+    bottom-edge table-switch mask ((out_h, 1) bool)."""
+    dev = gainmap.device
+    c, mh, mw = gainmap.shape
+    fields = (_replicate(gainmap, k, out_h, out_w),
+              _replicate(down, k, out_h, out_w),
+              _replicate(_shift_clamp(gainmap, 2), k, out_h, out_w),
+              _replicate(_shift_clamp(down, 2), k, out_h, out_w))
+
+    tables = torch.from_numpy(shepards_weight_tables(k)).to(dev)
+    # edge masks: x_lower == x_upper when x//k >= mw-1 (same for y)
+    cc = ((torch.arange(out_w, device=dev) // k) >= (mw - 1))[None, :]
+
+    out = torch.zeros((c, out_h, out_w), dtype=torch.float32, device=dev)
+    for j in range(4):
+        w_d, w_nr, w_nb, w_c = (_tile_to(tables[t, :, :, j], out_h, out_w)
+                                for t in range(4))
+        w = torch.where(rr & cc, w_c,
+                        torch.where(cc, w_nr, torch.where(rr, w_nb, w_d)))
+        out = out + fields[j] * w[None]
+    return out
+
+
+def idw_upsample(gainmap: torch.Tensor, k: int, out_h: int,
+                 out_w: int) -> torch.Tensor:
+    """Integer-factor IDW upsample: (C, mh, mw) float -> (C, out_h, out_w),
+    as sampleMap/sampleMap3Channel with ShepardsIDW tables
+    (gainmapmath.cpp:923-956, 1026-1080)."""
+    if k == 1 and tuple(gainmap.shape[-2:]) == (out_h, out_w):
+        return gainmap
+    mh = gainmap.shape[1]
+    down = _shift_clamp(gainmap, 1)
+    rr = ((torch.arange(out_h, device=gainmap.device) // k)
+          >= (mh - 1))[:, None]
+    return _idw_core(gainmap, down, k, out_h, out_w, rr)

@@ -7,11 +7,14 @@
 - ``read_jpegr``: split a JPEG_R file through its MPF index and read the
   gain map's ISO 21496-1 metadata;
 - ``decode_scan_coeffs``: decode one JPEG's scan back to its quantised
-  coefficients with the shared native decoder.
+  coefficients with the shared native decoder;
+- ``check_decoded_close``: the contract between two decodes of one file
+  (RGBA1010102 or RGBAF16 output) by different programs or devices.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -168,3 +171,120 @@ def decode_scan_coeffs(jpeg: bytes, layout: ScanLayout) -> list[np.ndarray]:
         [DC_LUMA, DC_CHROMA, None, None], [AC_LUMA, AC_CHROMA, None, None],
         restart_interval=layout.mcus_w)
     return coeffs
+
+
+def host_packed(packed) -> np.ndarray:
+    """A packed decode output as host numpy with its unsigned type:
+    RGBA1010102 (H, W) np.uint32, RGBAF16 (H, W, 4) np.uint16.  Takes the
+    device carriers (int32 / int16 tensors) or numpy arrays."""
+    a = packed.cpu().numpy() if hasattr(packed, "cpu") else np.asarray(packed)
+    if a.dtype in (np.int32, np.uint32):
+        return a.view(np.uint32)
+    if a.dtype in (np.int16, np.uint16) and a.ndim == 3 and a.shape[-1] == 4:
+        return a.view(np.uint16)
+    raise ValueError(f"not a packed decode output: {a.dtype} {a.shape}")
+
+
+def codes_1010102(packed) -> np.ndarray:
+    """(4, H, W) int64 codes of an RGBA1010102 output: R, G, B (10 bits)
+    and A (2 bits)."""
+    p = host_packed(packed).astype(np.int64)
+    return np.stack([(p >> 0) & 1023, (p >> 10) & 1023, (p >> 20) & 1023,
+                     (p >> 30) & 3])
+
+
+def _values(packed) -> tuple[np.ndarray, float]:
+    """(float64 samples, peak) of a packed output: 10-bit codes with peak
+    1023, or half floats with the linear peak 10000/203."""
+    p = host_packed(packed)
+    if p.dtype == np.uint32:
+        return codes_1010102(p)[:3].astype(np.float64), 1023.0
+    return p[..., :3].view(np.float16).astype(np.float64), 10000.0 / 203.0
+
+
+def psnr(got, want) -> float:
+    """PSNR in dB of one packed output against another over R, G, B."""
+    a, peak = _values(got)
+    b, _ = _values(want)
+    mse = np.mean((a - b) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(peak ** 2 / mse))
+
+
+# RGBAF16 samples may differ by one step of the 1024-entry gain grid, where
+# an ulp of the upstream float math moves a gain across a grid midpoint: a
+# step is a factor max_boost**(1/1023), 1.0016 at the encoders' 1000/203,
+# i.e. 1.6 to 3.2 half-float ulps.
+F16_MAX_ULPS = 4
+# Share of samples (R, G, B, A) that may differ at all.  An ulp moves a
+# 10-bit code more often on the steep PQ curve: the port's CPU decode
+# against the JAX package's differs on 1.4e-3 of the samples there, against
+# about half of them for a rounding fault such as floor for rint.
+SHARE_OFF = {np.dtype(np.uint32): 5e-3, np.dtype(np.uint16): 1e-3}
+
+
+@functools.lru_cache(maxsize=2)
+def attainable_codes(out_ct: ColorTransfer) -> np.ndarray:
+    """Sorted 10-bit codes that an HLG or PQ output can take: the OETF at
+    each point of its 65536-entry LUT grid (ops/lut_parity.py), rounded
+    (float64 here).  Away from black consecutive grid points give codes
+    equal or 1 apart; near black one step spans several codes (up to 7 for
+    HLG and 76 for PQ)."""
+    e = np.arange(65536, dtype=np.float64) / 65535.0
+    if ColorTransfer(out_ct) == ColorTransfer.HLG:
+        a, b, c = 0.17883277, 0.28466892, 0.55991073
+        v = np.where(e <= 1.0 / 12.0, np.sqrt(3.0 * e),
+                     a * np.log(np.maximum(12.0 * e - b, 1e-37)) + c)
+    else:
+        m1, m2 = 2610.0 / 16384.0, 2523.0 / 4096.0 * 128.0
+        c1, c2, c3 = 3424.0 / 4096.0, 2413.0 / 4096.0 * 32.0, \
+            2392.0 / 4096.0 * 32.0
+        ep = e ** m1
+        v = np.where(e <= 0.0, 0.0, ((c1 + c2 * ep) / (1.0 + c3 * ep)) ** m2)
+    return np.unique(np.round(np.clip(v, 0.0, 1.0) * 1023.0).astype(np.int64))
+
+
+def check_decoded_close(got, want, out_ct: ColorTransfer,
+                        what: str = "") -> tuple[int, float]:
+    """Hold a packed decode output against another of the same file, made
+    by another program or on another device.  Transcendentals may differ by
+    an ulp between the two, and a LUT grid (ops/lut_parity.py) now and then
+    turns that into one step of the grid, so:
+
+    - RGBA1010102 (HLG/PQ): every code equals the other or is its neighbour
+      among ``attainable_codes(out_ct)`` (no attainable code lies between
+      the two): within 1 away from black, one step of the 65536-entry OETF
+      grid near it;
+    - RGBAF16 (LINEAR): the half-float patterns are within F16_MAX_ULPS;
+    - both: at most SHARE_OFF of the samples differ (5e-3 for RGBA1010102,
+      1e-3 for RGBAF16), and PSNR >= 60 dB.
+
+    A kernel held against its plain version on the same device is held to
+    equality instead (chip_smoke.py).
+
+    Returns (max abs difference, share of differing samples); raises
+    AssertionError outside the contract."""
+    a, b = host_packed(got), host_packed(want)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: output {a.dtype} {a.shape} vs "
+                             f"{b.dtype} {b.shape}")
+    if a.dtype == np.uint32:
+        ca, cb = codes_1010102(a), codes_1010102(b)
+        diff = np.abs(ca - cb)
+        lo, hi = np.minimum(ca[:3], cb[:3]), np.maximum(ca[:3], cb[:3])
+        table = attainable_codes(out_ct)
+        between = (np.searchsorted(table, hi, "left")
+                   - np.searchsorted(table, lo, "right"))
+        ok = bool((between <= 0).all() and (ca[3] == cb[3]).all())
+        limit = "neighbouring attainable codes"
+    else:
+        diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        ok = int(diff.max()) <= F16_MAX_ULPS
+        limit = f"{F16_MAX_ULPS} ulps"
+    err, share = int(diff.max()), float((diff > 0).mean())
+    share_limit = SHARE_OFF[a.dtype]
+    db = psnr(a, b)
+    if not ok or share > share_limit or db < 60.0:
+        raise AssertionError(f"{what}: max abs difference {err} (limit "
+                             f"{limit}), {share:.2e} of samples differ "
+                             f"(limit {share_limit}), PSNR {db:.2f} dB")
+    return err, share

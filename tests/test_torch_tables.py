@@ -191,7 +191,11 @@ def test_import_leaves_jax_out():
     """Importing the port (and every module of the slice) must not import
     jax or the JAX package."""
     code = ("import sys, libultrahdr_tpu_torch, libultrahdr_tpu_torch.fused, "
-            "libultrahdr_tpu_torch.testing, libultrahdr_tpu_torch.api; "
+            "libultrahdr_tpu_torch.testing, libultrahdr_tpu_torch.api, "
+            "libultrahdr_tpu_torch.jpegr, libultrahdr_tpu_torch.ops.apply, "
+            "libultrahdr_tpu_torch.ops.apply_kernel, "
+            "libultrahdr_tpu_torch.jpeg.decoder, "
+            "libultrahdr_tpu_torch.container.segments; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'libultrahdr_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -216,12 +220,15 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: port.JpegR(device="cuda"),
                  lambda: port.UhdrEncoder(device="cuda"),
-                 lambda: port.UhdrEncoder(device="cuda:0")):
+                 lambda: port.UhdrEncoder(device="cuda:0"),
+                 lambda: port.UhdrDecoder(device="cuda")):
         with pytest.raises(port.UhdrError) as e:
             make()
         assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
     with pytest.raises(TypeError):
         port.UhdrEncoder()          # the device is never looked up
+    with pytest.raises(TypeError):
+        port.UhdrDecoder()
     with pytest.raises(port.UhdrError):
         port_api.UhdrEncoder(device="meta")
 

@@ -3,30 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at 3840x2160: the API-0 P010 encode through
-``libultrahdr_tpu_torch.UhdrEncoder(device="cuda")``, then the JPEG_R decode
-of the files it wrote through ``UhdrDecoder(device="cuda")``, in phases that
-each print lines and let any failure propagate (exit code != 0):
+Drives the port's paths at 3840x2160: the API-0 encode of P010,
+RGBA1010102 and RGBAF16 input through
+``libultrahdr_tpu_torch.UhdrEncoder(device="cuda")`` and of YUV444_10 input
+through ``JpegR(device="cuda").encode_api0``, the JPEG_R decode of
+the P010 files through ``UhdrDecoder(device="cuda")``, then the slot-input
+block-pack and tile-pack routes on the encode's scans, in phases that each
+print lines and let any failure propagate (exit code != 0).  Every path is
+driven with all kernel launch counts set to 0 just before it and read just
+after:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels (csrc/pack_kernel.cu and csrc/apply_kernel.cu,
-   nvcc, sm_90a) and the shared host C++ from the checkout's sources, all
-   three compilers started together; print each kernel's ptxas line;
-3. hold the pack kernel against its plain PyTorch version on seeded 4:2:0,
-   4:4:4 and 4:0:0 coefficient planes with the pack's edge cases: block
-   lengths and words must be bit-identical; hold the apply kernel against
-   its plain version on seeded inputs at a ragged size over the three
-   outputs x use_base_cg x 1-/3-channel gain x gamma {1, 1.571}: the
-   packed outputs must be bit-identical;
+2. build the three CUDA kernel libraries (csrc/pack_kernel.cu,
+   csrc/block_pack_kernel.cu and csrc/apply_kernel.cu, nvcc, sm_90a) and the
+   shared host C++ from the checkout's sources, all four compilers started
+   together; print each library's ptxas lines;
+3. hold the pack kernel, the block pack and the tile pack against their
+   plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
+   planes with the pack's edge cases, and the tile pack also on a dense
+   tile that overflows budget 16 (check_tile_budgets must raise): every
+   output bit-identical (torch.equal; the tile pack on its block lengths
+   and every tile's live prefix, the rest of a tile being undefined); hold
+   the apply kernel against its plain version on seeded inputs at a ragged
+   size over the three outputs x use_base_cg x 1-/3-channel gain x gamma
+   {1, 1.571}: the packed outputs must be bit-identical;
 4. three encodes per configuration (the reference benchmark's: map scale 4,
    single-channel gain map; the library default: scale 1, 3-channel) of
-   ``testing.photo_p010(3840, 2160)``, each checked: the MPF container holds
-   two JPEGs and the ISO gain-map metadata, the scans decode (shared native
-   decoder) to exactly the coefficients the device computed, the bytes equal
-   the same encode with the plain entropy stage on the card, and every
-   request launched the kernel.  A small image encoded on the card is held
-   against the port's CPU encode.  Prints each request's ms and MP/s and the
-   kernel's and the plain version's time at the 4K shapes (CUDA events);
+   ``testing.photo_p010(3840, 2160)``, then two each of
+   ``testing.photo_rgba1010102`` (HLG), ``photo_rgbaf16`` (LINEAR) and
+   ``photo_yuv444_10`` (HLG) at 3840x2160, each checked: the MPF container
+   holds two JPEGs and the ISO gain-map metadata, the scans decode (shared
+   native decoder) to exactly the coefficients the device computed, the
+   bytes equal the same encode with the plain entropy stage on the card,
+   and every request launched the pack kernel once.  Small P010, RGB and
+   YUV444_10 images encoded on the card are held against the port's CPU
+   encode.  Prints each request's ms and MP/s and the pack kernel's and its
+   plain version's time at the 4K shapes (CUDA events) beside its bound;
 5. decodes the benchmark and the default file of phase 4 to HLG, PQ
    (RGBA1010102) and LINEAR (RGBAF16), each checked: the request launched
    the apply kernel exactly once, and its output is bit-identical to the
@@ -37,7 +49,14 @@ each print lines and let any failure propagate (exit code != 0):
    ``testing.check_decoded_close``'s contract of the port's CPU decode.
    Prints each request's ms and MP/s and the apply kernel's and the plain
    version's time at the 4K shapes (CUDA events);
-6. prints one JSON line with the kernel records, then the device line.
+6. the block-pack and tile-pack routes (testing.pack_scans_v1 /
+   pack_scans_v2) pack each configuration's P010 scans in one launch each:
+   their joined scans equal the scans of the encode's JPEG_R, and each
+   kernel equals its plain version at those shapes.  Prints each kernel's
+   and plain version's time (CUDA events) beside its bound;
+7. prints one JSON line with the kernel records (launches on the paths,
+   max abs error against the plain version, ms, plain ms, the bound), then
+   the device line.
 
 It imports nothing of JAX and nothing of the JAX package; there is no CPU
 path.
@@ -90,6 +109,61 @@ def max_abs_err(a_words, a_blen, b_words, b_blen) -> int:
                    db.abs().max().item()))
 
 
+def tensors_equal(got, want, what: str) -> int:
+    """Hold a kernel's output tensors against its plain version's on the
+    same card: 0 when every pair is torch.equal, else AssertionError."""
+    import torch
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {i} differs from the plain "
+                                 f"version ({a.dtype} {tuple(a.shape)} vs "
+                                 f"{b.dtype} {tuple(b.shape)})")
+    return 0
+
+
+def tiles_equal(got, want, what: str) -> int:
+    """Hold the tile pack's (tiles, blen) against its plain version's: blen
+    and every tile's live prefix torch.equal (the rest of a tile is
+    undefined, as on the TPU)."""
+    from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
+    (gt, gb), (wt, wb) = got, want
+    if gt.shape != wt.shape:
+        raise AssertionError(f"{what}: tiles {tuple(gt.shape)} vs "
+                             f"{tuple(wt.shape)}")
+    live = pk.tile_live_words(wb)
+    return tensors_equal((gb, pk.stitch_tiles([(gt, live)])),
+                         (wb, pk.stitch_tiles([(wt, live)])), what)
+
+
+def live_tile_bytes(tiles, blen) -> int:
+    """Bytes of the tile pack's words that a run must write: each tile's
+    live words, at most its budget."""
+    from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
+    live = pk.tile_live_words(blen).clamp(max=tiles.shape[1])
+    return 4 * int(live.sum())
+
+
+# Peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): device
+# memory bytes per second, and 32-bit operations per second outside the
+# tensor cores (the float32 rate; the kernels here do 32-bit integer and
+# float work)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate, or its operations over the 32-bit rate, whichever
+    is larger."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def bit_identical(got, want, what: str) -> int:
     """Hold a kernel's packed output against its plain version on the same
     card: 0 when the two are bit-identical, else AssertionError."""
@@ -135,25 +209,46 @@ def main() -> int:
     from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
     from libultrahdr_tpu_torch.ops import apply as apply_ops
     from libultrahdr_tpu_torch.ops import apply_kernel as ak
-    from libultrahdr_tpu_torch.ops import gainmap, idw, pixel, tonemap
+    from libultrahdr_tpu_torch.ops import colors, gainmap, idw, pixel, tonemap
     dev = torch.device("cuda", 0)
+    CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
+
+    counted = {"pack_scan": pk.PACK_KERNEL, "pack_blocks": pk.PACK_BLOCKS_KERNEL,
+               "pack_tiles": pk.PACK_TILES_KERNEL,
+               "apply_gainmap": ak.APPLY_KERNEL}
+
+    def zero_counts():
+        for kern in counted.values():
+            kern.launches = 0
+
+    def read_counts(path: str, want: dict) -> dict:
+        """The launch counts after driving `path`; raises unless they are
+        `want` (kernels not named there: 0)."""
+        got = {k: kern.launches for k, kern in counted.items()}
+        if got != {k: want.get(k, 0) for k in counted}:
+            raise AssertionError(f"{path}: kernel launches {got}, expected "
+                                 f"{want}")
+        log(f"launches on the {path} path: {got}")
+        return got
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(native.get_lib), pool.submit(pk.PACK_KERNEL.build),
-                  pool.submit(ak.APPLY_KERNEL.build)]:
+    libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
+            ("apply", ak.APPLY_LIB))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(native.get_lib)] + [
+                pool.submit(lib.build) for _, lib in libs]:
             f.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for both kernels "
-        "(nvcc sm_90a) and the host C++, in parallel")
-    for kname, kern in (("pack", pk.PACK_KERNEL), ("apply", ak.APPLY_KERNEL)):
-        ptxas = [ln.strip() for ln in kern.build_log.splitlines()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the three "
+        "kernel libraries (nvcc sm_90a) and the host C++, in parallel")
+    for kname, lib in libs:
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"phase 2 {kname} kernel: {kern.build_seconds:.1f} s | "
+        log(f"phase 2 {kname} kernel: {lib.build_seconds:.1f} s | "
             + " | ".join(ptxas))
 
-    # ---- phase 3: kernel against plain on edge-case planes ----------------
-    launches0 = pk.PACK_KERNEL.launches
+    # ---- phase 3: kernels against plain on edge-case planes ---------------
+    launches0 = {k: kern.launches for k, kern in counted.items()}
     for sampling, mw, mh in (((2, 2), (1, 1), (1, 1)), 24, 16), \
             (((1, 1), (1, 1), (1, 1)), 37, 21), (((1, 1),), 61, 45):
         layout = device_entropy.scan_layout(sampling, mw, mh)
@@ -169,8 +264,42 @@ def main() -> int:
                                  f"max abs err {err}")
         log(f"phase 3 kernel == plain: sampling {sampling} {mw}x{mh} MCUs, "
             f"{kb.numel()} blocks, {kw.numel()} words, bit-identical")
-    if pk.PACK_KERNEL.launches != launches0 + 3:
-        raise AssertionError("phase 3 did not launch the kernel")
+        pays, lens = pk.slots_for_kernel(planes, layout)
+        tensors_equal(pk.pack_blocks(pays, lens),
+                      pk.pack_blocks_plain(pays, lens),
+                      f"block pack on {sampling} {mw}x{mh}")
+        tiles_equal(pk.pack_tiles(pays, lens, 16),
+                    pk.pack_tiles_plain(pays, lens, 16),
+                    f"tile pack on {sampling} {mw}x{mh}")
+        torch.cuda.synchronize()
+        log(f"phase 3 block pack == plain, tile pack (budget 16) == plain on "
+            f"the live prefixes: {pays.shape[0]} blocks, torch.equal")
+    # a dense 2048-block tile (every AC coefficient of magnitude 512-1023,
+    # about 50 words a block) overflows budget 16: the tile pack drops the
+    # same tail as its plain version, and the host check refuses it
+    rs = np.random.RandomState(3)
+    dense = np.zeros((32, 64, 64), np.int16)
+    dense[..., 0] = rs.randint(-300, 300, (32, 64))
+    dense[..., 1:] = np.where(rs.rand(32, 64, 63) < 0.5, -1, 1) \
+        * rs.randint(512, 1024, (32, 64, 63))
+    layout = device_entropy.scan_layout(((1, 1),), 64, 32)
+    pays, lens = pk.slots_for_kernel([torch.from_numpy(dense).to(dev)],
+                                     layout)
+    tiles, tblen = pk.pack_tiles(pays, lens, 16)
+    tiles_equal((tiles, tblen), pk.pack_tiles_plain(pays, lens, 16),
+                "tile pack on an overflowing tile")
+    try:
+        pk.check_tile_budgets(tblen.cpu().numpy(), 16)
+    except device_entropy.PackOverflowError as e:
+        log(f"phase 3 tile pack == plain on an overflowing tile (live "
+            f"prefixes up to the budget), torch.equal; check_tile_budgets "
+            f"raised: {e}")
+    else:
+        raise AssertionError("the dense tile did not overflow budget 16")
+    want3 = {"pack_scan": 3, "pack_blocks": 3, "pack_tiles": 4}
+    for k, n in want3.items():
+        if counted[k].launches != launches0[k] + n:
+            raise AssertionError(f"phase 3 did not launch the {k} kernel")
 
     apply_err = 0
     rs = np.random.RandomState(7)
@@ -181,13 +310,12 @@ def main() -> int:
         np.float32) / 255.0).to(dev)
     launches0 = ak.APPLY_KERNEL.launches
     for out_ct, use_base_cg, chans, gamma in itertools.product(
-            (port.ColorTransfer.HLG, port.ColorTransfer.PQ,
-             port.ColorTransfer.LINEAR), (False, True), (1, 3), (1.0, 1.571)):
+            (CT.HLG, CT.PQ, CT.LINEAR), (False, True), (1, 3), (1.0, 1.571)):
         rows = np.array([[gamma] * 3, [1.0, 1.0, 1.0],
                          [1000.0 / 203.0, 4.0, 4.9], [1e-7] * 3, [1e-7] * 3],
                         np.float32)
-        kw = dict(out_ct=out_ct, sdr_cg=port.ColorGamut.DISPLAY_P3,
-                  hdr_cg=port.ColorGamut.BT2100, use_base_cg=use_base_cg)
+        kw = dict(out_ct=out_ct, sdr_cg=CG.DISPLAY_P3, hdr_cg=CG.BT2100,
+                  use_base_cg=use_base_cg)
         g = gain3[:chans].contiguous()
         got = ak.apply_gainmap(sdr, g, rows, 0.31, **kw)
         want = ak.apply_gainmap_plain(sdr, g, rows, 0.31, **kw)
@@ -201,67 +329,94 @@ def main() -> int:
     if ak.APPLY_KERNEL.launches != launches0 + 24:
         raise AssertionError("phase 3 did not launch the apply kernel")
 
-    # ---- phase 4: the main path ------------------------------------------
+    # ---- phase 4: the encode paths ---------------------------------------
     w, h = 3840, 2160
-    img = testing.photo_p010(w, h)
     configs = {"benchmark": dict(scale=4, multichannel=False),
                "default": dict(scale=1, multichannel=True)}
-    outputs = {}
-    pk.PACK_KERNEL.launches = 0
-    ak.APPLY_KERNEL.launches = 0
-    for cfg, kw in configs.items():
-        outputs[cfg] = []
-        for req in range(3):
-            before = pk.PACK_KERNEL.launches
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+
+    def encode(img, kw, what: str) -> bytes:
+        """One request on the card through UhdrEncoder, or for YUV444_10
+        (which the encoder API, like the reference's, does not take as an
+        HDR intent) through JpegR.encode_api0; it must launch the pack
+        kernel exactly once."""
+        before = pk.PACK_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if Fmt(img.fmt) == Fmt.YUV444_10:
+            data = port.JpegR(
+                device="cuda", map_dimension_scale_factor=kw["scale"],
+                use_multi_channel_gainmap=kw["multichannel"]).encode_api0(
+                    img, 95)
+        else:
             enc = port.UhdrEncoder(device="cuda")
             enc.set_raw_image(img, port.ImgLabel.HDR)
             enc.set_quality(95, port.ImgLabel.BASE)
             enc.set_gainmap_scale_factor(kw["scale"])
             enc.set_using_multi_channel_gainmap(kw["multichannel"])
             data = enc.encode()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            if pk.PACK_KERNEL.launches != before + 1:
-                raise AssertionError(f"{cfg} request {req} did not launch "
-                                     "the pack kernel exactly once")
-            outputs[cfg].append(data)
-            log(f"phase 4 encode {cfg} request {req}: {ms:.1f} ms, "
-                f"{w * h / ms / 1e3:.2f} MP/s, {len(data)} bytes | {card}")
-    launches = pk.PACK_KERNEL.launches
-    if ak.APPLY_KERNEL.launches != 0:
-        raise AssertionError("the encode path launched the apply kernel")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if pk.PACK_KERNEL.launches != before + 1:
+            raise AssertionError(f"{what} did not launch the pack kernel "
+                                 "exactly once")
+        log(f"phase 4 encode {what}: {ms:.1f} ms, {w * h / ms / 1e3:.2f} "
+            f"MP/s, {len(data)} bytes | {card}")
+        return data
 
-    kernel_rows = {}
-    for cfg, kw in configs.items():
-        data = outputs[cfg][0]
-        if any(d != data for d in outputs[cfg]):
-            raise AssertionError(f"{cfg}: the three requests differ")
+    def check_encode(data, img, kw, block_buffers, planes, encode_fn, what,
+                     **bb_kw):
+        """The phase-4 checks of a request's file: container and ISO boost,
+        scans that decode to the device's coefficients, bytes equal to the
+        plain-entropy encode.  Returns (primary, gain-map JPEG, scans)."""
         primary, gm_jpeg, md = testing.read_jpegr(data)
-        boost = 1000.0 / 203.0
+        cg, ct = CG(img.cg), CT(img.ct)
+        boost = colors.reference_display_peak_nits(ct) / 203.0
         if not np.allclose(md.max_content_boost, boost, rtol=1e-4):
-            raise AssertionError(f"{cfg}: ISO max boost "
+            raise AssertionError(f"{what}: ISO max boost "
                                  f"{md.max_content_boost} != {boost}")
         jr = port.JpegR(device="cuda", map_dimension_scale_factor=kw["scale"],
                         use_multi_channel_gainmap=kw["multichannel"])
-        y, uv = fused.upload_p010(img, dev)
-        scans = fused._api0_p010_block_buffers(
-            y, uv, cg=port.ColorGamut.BT2100, ct=port.ColorTransfer.HLG,
-            rng=port.ColorRange.FULL, scale=kw["scale"],
-            multichannel=kw["multichannel"], gamma=1.0, quality=95,
-            map_quality=95, use_base_cg=False)
+        scans = block_buffers(
+            *fused.upload_planes(planes, dev), cg=cg, ct=ct,
+            scale=kw["scale"], multichannel=kw["multichannel"], gamma=1.0,
+            quality=95, map_quality=95,
+            use_base_cg=fused._use_base_cg(CG.DISPLAY_P3, cg, jr.write_xmp),
+            **bb_kw)
         for jpeg, (coeffs, layout) in zip((primary, gm_jpeg), scans):
             got = testing.decode_scan_coeffs(jpeg, layout)
             for g, c in zip(got, coeffs):
                 if not np.array_equal(g, c.cpu().numpy()):
-                    raise AssertionError(f"{cfg}: decoded scan != device "
+                    raise AssertionError(f"{what}: decoded scan != device "
                                          "coefficients")
-        plain = fused.encode_api0_p010_fused(jr, img, 95, None,
-                                             pack=pk.pack_scan_plain)
-        if plain != data:
-            raise AssertionError(f"{cfg}: kernel encode != plain-entropy "
+        if encode_fn(jr, img, 95, None, pack=pk.pack_scan_plain) != data:
+            raise AssertionError(f"{what}: kernel encode != plain-entropy "
                                  "encode")
+        log(f"phase 4 checks {what}: container ok ({len(primary)} + "
+            f"{len(gm_jpeg)} bytes, ISO boost {md.max_content_boost[0]:.4f}),"
+            f" coefficients round-trip exactly, bytes == plain-entropy "
+            f"encode | {card}")
+        return primary, gm_jpeg, scans
+
+    # P010 (the reference app's benchmark input)
+    img = testing.photo_p010(w, h)
+    p010_planes = [np.asarray(p, np.uint16) for p in img.planes[:2]]
+    outputs = {}
+    zero_counts()
+    for cfg, kw in configs.items():
+        outputs[cfg] = [encode(img, kw, f"P010 {cfg} request {req}")
+                        for req in range(3)]
+    p010_launches = read_counts("P010 encode", {"pack_scan": 6})
+
+    kernel_rows, p010_scans, p010_jpegs = {}, {}, {}
+    for cfg, kw in configs.items():
+        data = outputs[cfg][0]
+        if any(d != data for d in outputs[cfg]):
+            raise AssertionError(f"{cfg}: the three requests differ")
+        primary, gm_jpeg, scans = check_encode(
+            data, img, kw, fused._api0_p010_block_buffers, p010_planes,
+            fused.encode_api0_p010_fused, f"P010 {cfg}",
+            rng=port.ColorRange.FULL)
+        p010_scans[cfg], p010_jpegs[cfg] = scans, (primary, gm_jpeg)
         ins = [torch.cat(p) for p in zip(*(
             device_entropy.stream_inputs(c, lay) for c, lay in scans))]
         kw_, kb_ = pk.pack_scan(*ins)
@@ -273,62 +428,142 @@ def main() -> int:
         ker_ms = cuda_ms(lambda: pk.pack_scan(*ins), 20)
         ker_ms2 = cuda_ms(lambda: pk.pack_scan(*ins), 20)
         plain_ms2 = cuda_ms(lambda: pk.pack_scan_plain(*ins), 5)
+        # ~4 integer operations per AC position scanned, ~12 more for each
+        # nonzero coefficient and each DC (category, table, value bits, put)
+        nnz = int((ins[0][:, 1:] != 0).sum()) + kb_.numel()
+        b_ms, b_by = bound(nbytes(*ins, kw_, kb_),
+                           4 * 63 * kb_.numel() + 12 * nnz)
         kernel_rows[cfg] = dict(ms=(ker_ms + ker_ms2) / 2,
                                 plain_ms=(plain_ms + plain_ms2) / 2,
-                                err=err, blocks=kb_.numel())
-        log(f"phase 4 checks {cfg}: container ok ({len(primary)} + "
-            f"{len(gm_jpeg)} bytes, ISO boost {md.max_content_boost[0]:.4f}),"
-            f" coefficients round-trip exactly, bytes == plain-entropy "
-            f"encode | pack at {kb_.numel()} blocks: kernel "
+                                err=err, bound_ms=b_ms, bound_by=b_by)
+        log(f"phase 4 pack kernel {cfg} at {kb_.numel()} blocks: kernel "
             f"{ker_ms:.3f}/{ker_ms2:.3f} ms, plain {plain_ms:.3f}/"
-            f"{plain_ms2:.3f} ms (CUDA events) | {card}")
+            f"{plain_ms2:.3f} ms (CUDA events), bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes(*ins, kw_, kb_) / 1e6:.1f} MB) | {card}")
 
-    # a small image: the card against the port's CPU encode (which the
-    # CPU tests hold against the JAX package), SDR and gain-map u8 planes
-    # within 1 LSB on at most 1e-3 of the samples
+    # RGBA1010102 / RGBAF16 and YUV444_10 (raw upload, 4:4:4 base):
+    # name -> (image, its block buffers, their planes and keywords, encode)
+    yuv_img = testing.photo_yuv444_10(w, h)
+    rgb_imgs = {
+        name: (rimg, fused._api0_rgb_block_buffers, rimg.planes[:1],
+               dict(fmt=Fmt(rimg.fmt)), fused.encode_api0_rgb_fused)
+        for name, rimg in (
+            ("RGBA1010102 HLG", testing.photo_rgba1010102(w, h)),
+            ("RGBAF16 LINEAR", testing.photo_rgbaf16(w, h)))}
+    rgb_imgs["YUV444_10 HLG"] = (
+        yuv_img, fused._api0_yuv444_10_block_buffers,
+        [np.asarray(p, np.uint16) for p in yuv_img.planes[:3]],
+        dict(rng=port.ColorRange(yuv_img.range)),
+        fused.encode_api0_yuv444_10_fused)
+    rgb_outputs = {}
+    zero_counts()
+    for rname, (rimg, *_) in rgb_imgs.items():
+        for cfg, kw in configs.items():
+            rgb_outputs[rname, cfg] = [
+                encode(rimg, kw, f"{rname} {cfg} request {req}")
+                for req in range(2)]
+    rgb_launches = read_counts("RGB and YUV444_10 encode",
+                               {"pack_scan": 2 * len(rgb_outputs)})
+    for (rname, cfg), datas in rgb_outputs.items():
+        if datas[0] != datas[1]:
+            raise AssertionError(f"{rname} {cfg}: the two requests differ")
+        rimg, block_buffers, planes, bb_kw, encode_fn = rgb_imgs[rname]
+        check_encode(datas[0], rimg, configs[cfg], block_buffers, planes,
+                     encode_fn, f"{rname} {cfg}", **bb_kw)
+
+    # small images: the card against the port's CPU encode (which the CPU
+    # tests hold against the JAX package), SDR and gain-map u8 planes within
+    # 1 LSB on at most 1e-3 of the samples (RGB: and at least one, as its
+    # benchmark-configuration map has only 512)
+    def close_u8(a, b, what, at_least: int = 0):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        if diff.max() > 1 or (diff > 0).sum() > max(at_least,
+                                                    1e-3 * diff.size):
+            raise AssertionError(f"{what}: card vs CPU u8 planes differ "
+                                 f"(max {diff.max()}, share "
+                                 f"{(diff > 0).mean():.2e})")
+
     small = testing.photo_p010(130, 66)
     for cfg, kw in configs.items():
         planes = {}
         for d in ("cuda", "cpu"):
             y, uv = fused.upload_p010(small, torch.device(d))
             hdr = pixel.unpack_p010(y, uv, port.ColorRange.FULL,
-                                          small.h, small.w)
-            y8, u8, v8 = tonemap.tonemap_to_yuv(
-                hdr, port.ImgFmt.P010, port.ColorGamut.BT2100,
-                port.ColorTransfer.HLG)
+                                    small.h, small.w)
+            y8, u8, v8 = tonemap.tonemap_to_yuv(hdr, Fmt.P010, CG.BT2100,
+                                                CT.HLG)
             sdr = pixel.unpack_yuv8(y8, u8, v8, 2, 2, small.h, small.w)
             gm = gainmap.generate_gainmap_onepass(
-                sdr, hdr, sdr_fmt=port.ImgFmt.YUV420,
-                hdr_fmt=port.ImgFmt.P010,
-                sdr_cg=port.ColorGamut.DISPLAY_P3,
-                hdr_cg=port.ColorGamut.BT2100, ct=port.ColorTransfer.HLG,
+                sdr, hdr, sdr_fmt=Fmt.YUV420, hdr_fmt=Fmt.P010,
+                sdr_cg=CG.DISPLAY_P3, hdr_cg=CG.BT2100, ct=CT.HLG,
                 scale=kw["scale"], multichannel=kw["multichannel"],
                 gamma=1.0, use_luminance=False, sdr_is_601=False,
                 use_base_cg=False, max_boost=1000.0 / 203.0)
-            planes[d] = [p.cpu().numpy().astype(np.int32)
-                         for p in (y8, u8, v8, gm)]
+            planes[d] = [p.cpu().numpy() for p in (y8, u8, v8, gm)]
         for a, b in zip(planes["cuda"], planes["cpu"]):
-            diff = np.abs(a - b)
-            if diff.max() > 1 or (diff > 0).mean() > 1e-3:
-                raise AssertionError(f"{cfg}: card vs CPU u8 planes differ "
-                                     f"(max {diff.max()}, share "
-                                     f"{(diff > 0).mean():.2e})")
-    log("phase 4 small image: card == CPU port within 1 LSB on <= 1e-3 of "
-        "the SDR and gain-map samples, both configurations")
+            close_u8(a, b, f"P010 {cfg}")
+    # the 4:4:4 encodes' tone map (RGB: to RGBA8888, then P3 YCbCr;
+    # YUV444_10: to YUV444) on each device, and their gain map on each
+    # device from the CPU's SDR and HDR values: one u8 step of a dark SDR
+    # sample moves its gain by several steps
+    small_rgb = {"RGBA1010102 PQ P3": testing.photo_rgba1010102(131, 67),
+                 "RGBAF16 LINEAR": testing.photo_rgbaf16(131, 67),
+                 "YUV444_10 HLG": testing.photo_yuv444_10(131, 67)}
+    small_rgb["RGBA1010102 PQ P3"].ct = CT.PQ
+    small_rgb["RGBA1010102 PQ P3"].cg = CG.DISPLAY_P3
 
-    if launches < 6:
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             "times for 6 requests")
+    def sdr_of(simg, d):
+        """(SDR values, HDR values, SDR u8 planes, SDR format) of a 4:4:4
+        encode's stages on device d."""
+        fmt, cg, ct = Fmt(simg.fmt), CG(simg.cg), CT(simg.ct)
+        if fmt == Fmt.YUV444_10:
+            hdr = pixel.unpack_yuv444_10(*fused.upload_planes(
+                [np.asarray(p, np.uint16) for p in simg.planes[:3]],
+                torch.device(d)), port.ColorRange(simg.range))
+            yuv8 = tonemap.tonemap_to_yuv(hdr, fmt, cg, ct, out_yuv420=False)
+            return (pixel.unpack_yuv8(*yuv8, 1, 1, simg.h, simg.w), hdr,
+                    yuv8, Fmt.YUV444)
+        unpack = pixel.unpack_rgba1010102 if fmt == Fmt.RGBA1010102 \
+            else pixel.unpack_rgbaf16
+        hdr = unpack(fused.upload_planes(simg.planes[:1], torch.device(d))[0])
+        sdr = pixel.unpack_rgba8888(tonemap.tonemap_to_rgba8888(
+            hdr, fmt, cg, ct))
+        return (sdr, hdr, fused._rgb_vals_to_yuv444_planes(
+            sdr, CG.DISPLAY_P3), Fmt.RGBA8888)
+
+    for rname, simg in small_rgb.items():
+        fmt, cg, ct = Fmt(simg.fmt), CG(simg.cg), CT(simg.ct)
+        vals, planes = {}, {}
+        for d in ("cpu", "cuda"):
+            sdr, hdr, yuv8, sdr_fmt = sdr_of(simg, d)
+            vals[d] = (sdr, hdr)
+            planes[d] = [p.cpu().numpy() for p in yuv8]
+        for cfg, kw in configs.items():
+            for d in ("cpu", "cuda"):
+                sdr, hdr = (v.to(d) for v in vals["cpu"])
+                gm = gainmap.generate_gainmap_onepass(
+                    sdr, hdr, sdr_fmt=sdr_fmt, hdr_fmt=fmt,
+                    sdr_cg=CG.DISPLAY_P3, hdr_cg=cg, ct=ct,
+                    scale=kw["scale"], multichannel=kw["multichannel"],
+                    gamma=1.0, use_luminance=False, sdr_is_601=False,
+                    use_base_cg=fused._use_base_cg(CG.DISPLAY_P3, cg, False),
+                    max_boost=colors.reference_display_peak_nits(ct)
+                    / 203.0)
+                planes[d, cfg] = gm.cpu().numpy()
+            close_u8(planes["cuda", cfg], planes["cpu", cfg],
+                     f"{rname} {cfg} gain map", at_least=1)
+        for a, b in zip(planes["cuda"], planes["cpu"]):
+            close_u8(a, b, f"{rname} SDR", at_least=1)
+    log("phase 4 small images: card == CPU port within 1 LSB on <= 1e-3 of "
+        "the SDR and gain-map samples, P010, RGB and YUV444_10, both "
+        "configurations")
 
     # ---- phase 5: the decode path ----------------------------------------
-    outs = (port.ColorTransfer.HLG, port.ColorTransfer.PQ,
-            port.ColorTransfer.LINEAR)
-    fmt_of = {port.ColorTransfer.HLG: port.ImgFmt.RGBA1010102,
-              port.ColorTransfer.PQ: port.ImgFmt.RGBA1010102,
-              port.ColorTransfer.LINEAR: port.ImgFmt.RGBAF16}
+    outs = (CT.HLG, CT.PQ, CT.LINEAR)
+    fmt_of = {CT.HLG: Fmt.RGBA1010102, CT.PQ: Fmt.RGBA1010102,
+              CT.LINEAR: Fmt.RGBAF16}
     decoded = {}
-    ak.APPLY_KERNEL.launches = 0
-    pk.PACK_KERNEL.launches = 0
+    zero_counts()
     for cfg in configs:
         for ct in outs:
             before = ak.APPLY_KERNEL.launches
@@ -347,12 +582,8 @@ def main() -> int:
             decoded[cfg, ct] = img_out.planes[0]
             log(f"phase 5 decode {cfg} {ct.name}: {ms:.1f} ms, "
                 f"{w * h / ms / 1e3:.2f} MP/s, {img_out.w}x{img_out.h} "
-                f"{port.ImgFmt(img_out.fmt).name} | {card}")
-    apply_launches = ak.APPLY_KERNEL.launches
-    if apply_launches != 6 or pk.PACK_KERNEL.launches != 0:
-        raise AssertionError(f"decode path launched apply {apply_launches}"
-                             f" and pack {pk.PACK_KERNEL.launches} times for "
-                             "6 requests")
+                f"{Fmt(img_out.fmt).name} | {card}")
+    apply_launches = read_counts("decode", {"apply_gainmap": 6})
 
     apply_rows = {}
     for cfg, kw in configs.items():
@@ -395,11 +626,11 @@ def main() -> int:
         weight = np.float32(apply_ops.gainmap_weight(
             jpegr.FLT_MAX, float(md.hdr_capacity_min),
             float(md.hdr_capacity_max)))
-        s_cg = port.ColorGamut(sdr_cg)
-        if s_cg == port.ColorGamut.UNSPECIFIED:
-            s_cg = port.ColorGamut.BT709
-        h_cg = port.ColorGamut(gm_cg)
-        if h_cg == port.ColorGamut.UNSPECIFIED:
+        s_cg = CG(sdr_cg)
+        if s_cg == CG.UNSPECIFIED:
+            s_cg = CG.BT709
+        h_cg = CG(gm_cg)
+        if h_cg == CG.UNSPECIFIED:
             h_cg = s_cg
         for ct in outs:
             kw_a = dict(out_ct=ct, sdr_cg=s_cg, hdr_cg=h_cg,
@@ -421,16 +652,20 @@ def main() -> int:
                 sdr_yuv, gain, rows, weight, **kw_a), 20)
             plain_ms2 = cuda_ms(lambda: ak.apply_gainmap_plain(
                 sdr_yuv, gain, rows, weight, **kw_a), 5)
+            moved = nbytes(sdr_yuv, gain, k_out)
+            # ~150 float operations a pixel: YUV->RGB, the sRGB LUT grid,
+            # gamut, a pow and an exp2 per gain channel, the OETF, packing
+            b_ms, b_by = bound(moved, 150 * w * h)
             apply_rows[cfg, ct] = dict(ms=(ker_ms + ker_ms2) / 2,
-                                       plain_ms=(plain_ms + plain_ms2) / 2)
-            nbytes = (3 + gain.shape[0]) * 4 * w * h \
-                + k_out.numel() * k_out.element_size()
+                                       plain_ms=(plain_ms + plain_ms2) / 2,
+                                       bound_ms=b_ms, bound_by=b_by)
             log(f"phase 5 checks {cfg} {ct.name}: decode == plain apply on "
                 f"its stage outputs, kernel == plain, bit-identical | apply "
                 f"kernel at {w}x{h}, {gain.shape[0]}-channel gain: kernel "
-                f"{ker_ms:.3f}/{ker_ms2:.3f} ms ({nbytes / ker_ms / 1e6:.0f} "
-                f"GB/s of {nbytes / 1e6:.0f} MB), plain {plain_ms:.3f}/"
-                f"{plain_ms2:.3f} ms (CUDA events) | {card}")
+                f"{ker_ms:.3f}/{ker_ms2:.3f} ms ({moved / ker_ms / 1e6:.0f} "
+                f"GB/s of {moved / 1e6:.0f} MB), plain {plain_ms:.3f}/"
+                f"{plain_ms2:.3f} ms (CUDA events), bound {b_ms:.4f} ms "
+                f"({b_by}) | {card}")
 
     # a small image: the card against the port's CPU decode (which the CPU
     # tests hold against the JAX package)
@@ -455,32 +690,97 @@ def main() -> int:
                 f"decode within the contract, max abs difference {err}, "
                 f"{share:.2e} of samples differ")
 
+    # ---- phase 6: the block-pack and tile-pack routes -------------------
+    # on the P010 scans of phase 4, one launch of their kernel per
+    # configuration
+    route_launches = {}
+    for kname, route in (("pack_blocks", testing.pack_scans_v1),
+                         ("pack_tiles", testing.pack_scans_v2)):
+        zero_counts()
+        routed = {cfg: route(p010_scans[cfg]) for cfg in configs}
+        torch.cuda.synchronize()
+        route_launches[kname] = read_counts(
+            f"{kname} route", {kname: len(configs)})[kname]
+        for cfg, (words, blen) in routed.items():
+            (_, bl), (_, gl) = p010_scans[cfg]
+            blen_h = blen.cpu().numpy().astype(np.uint16)
+            n_base = bl.mcus_h * bl.bpr
+            joined = fused.fetch_blocks_multi(
+                words.cpu().numpy().view(np.uint32),
+                [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
+            if joined != [testing.scan_data(j) for j in p010_jpegs[cfg]]:
+                raise AssertionError(f"{kname} route {cfg}: joined scans != "
+                                     "the encode's scans")
+            log(f"phase 6 {kname} route {cfg}: {blen.numel()} blocks, "
+                f"{words.numel()} words, joined scans == the JPEG_R's scans")
+
+    route_rows = {}
+    for cfg in configs:
+        pays, lens = testing.scans_slots(p010_scans[cfg])
+        n = pays.shape[0]
+        budget = device_entropy._default_budget(n)
+        for kname, kern, plain, extra in (
+                ("pack_blocks", pk.PACK_BLOCKS_KERNEL, pk.pack_blocks_plain,
+                 ()),
+                ("pack_tiles", pk.PACK_TILES_KERNEL, pk.pack_tiles_plain,
+                 (budget,))):
+            out = kern(pays, lens, *extra)
+            held, how = (tiles_equal, "torch.equal on the live prefixes") \
+                if kname == "pack_tiles" else (tensors_equal, "torch.equal")
+            err = held(out, plain(pays, lens, *extra), f"{kname} at 4K {cfg}")
+            plain_ms = cuda_ms(lambda: plain(pays, lens, *extra), 5)
+            ker_ms = cuda_ms(lambda: kern(pays, lens, *extra), 20)
+            ker_ms2 = cuda_ms(lambda: kern(pays, lens, *extra), 20)
+            plain_ms2 = cuda_ms(lambda: plain(pays, lens, *extra), 5)
+            # ~6 operations per slot (shift, or, add, compare, store); the
+            # tile pack writes only each tile's live words
+            moved = nbytes(pays, lens, *out) if kname == "pack_blocks" \
+                else nbytes(pays, lens, out[1]) + live_tile_bytes(*out)
+            b_ms, b_by = bound(moved, 6 * pays.numel())
+            route_rows[kname, cfg] = dict(ms=(ker_ms + ker_ms2) / 2,
+                                          plain_ms=(plain_ms + plain_ms2) / 2,
+                                          err=err, bound_ms=b_ms,
+                                          bound_by=b_by)
+            log(f"phase 6 {kname} {cfg} at {n} blocks: kernel == plain "
+                f"({how}), kernel {ker_ms:.3f}/{ker_ms2:.3f} ms "
+                f"({moved / ker_ms / 1e6:.0f} GB/s of {moved / 1e6:.1f} MB), "
+                f"plain {plain_ms:.3f}/{plain_ms2:.3f} ms (CUDA events), "
+                f"bound {b_ms:.4f} ms ({b_by}) | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
 
-    # ---- phase 6: records -------------------------------------------------
-    row = kernel_rows["default"]
-    arow = apply_rows["default", port.ColorTransfer.HLG]
-    log(json.dumps({"kernels": [{
-        "name": "pack_scan",
-        "route": "cuda",
-        "source": "libultrahdr_tpu_torch/csrc/pack_kernel.cu",
-        "replaces": "libultrahdr_tpu/jpeg/pack_kernel.py:595",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in kernel_rows.values()),
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"]}, {
-        "name": "apply_gainmap",
-        "route": "cuda",
-        "source": "libultrahdr_tpu_torch/csrc/apply_kernel.cu",
-        "replaces": "libultrahdr_tpu/ops/pallas_apply.py:177",
-        "launches": apply_launches,
-        "max_abs_err": apply_err,
-        "ms": arow["ms"],
-        "plain_ms": arow["plain_ms"]}]}))
+    # ---- phase 7: records -------------------------------------------------
+    src, tpu = "libultrahdr_tpu_torch/csrc/", "libultrahdr_tpu/"
+
+    def record(kname, source, replaces, launches, row, err):
+        return {"name": kname, "route": "cuda", "source": src + source,
+                "replaces": tpu + replaces, "launches": launches,
+                "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
+    log(json.dumps({"kernels": [
+        record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
+               p010_launches["pack_scan"] + rgb_launches["pack_scan"],
+               kernel_rows["default"],
+               max(r["err"] for r in kernel_rows.values())),
+        record("pack_blocks", "block_pack_kernel.cu",
+               "jpeg/pack_kernel.py:121", route_launches["pack_blocks"],
+               route_rows["pack_blocks", "default"],
+               max(r["err"] for (k, _), r in route_rows.items()
+                   if k == "pack_blocks")),
+        record("pack_tiles", "block_pack_kernel.cu",
+               "jpeg/pack_kernel.py:260", route_launches["pack_tiles"],
+               route_rows["pack_tiles", "default"],
+               max(r["err"] for (k, _), r in route_rows.items()
+                   if k == "pack_tiles")),
+        record("apply_gainmap", "apply_kernel.cu", "ops/pallas_apply.py:177",
+               apply_launches["apply_gainmap"],
+               apply_rows["default", CT.HLG], apply_err)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 
 Both the shared host C++ (the restart-row joiner and the scan decoder, compiled
 by path from ``libultrahdr_tpu/jpeg/_native``) and the CUDA kernels under
-``csrc/`` (each through ``build_cuda``, one nvcc command line for all) are
-compiled on first use into ``libultrahdr_tpu_torch/_build/``,
+``csrc/`` (each a ``CudaLibrary``, built through ``build_cuda``, one nvcc
+command line for all) are compiled on first use into ``libultrahdr_tpu_torch/_build/``,
 a directory that ``.gitignore`` lists.  Each library is keyed by a hash of its
 sources and its command line, so an edited source rebuilds.  A file lock makes
 concurrent first uses (test workers, several processes on one checkout) build
@@ -19,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
@@ -82,6 +83,33 @@ def build_cuda(name: str, source: pathlib.Path):
     lib.uhdr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.uhdr_cuda_error_string.restype = ctypes.c_char_p
     return lib, log, time.perf_counter() - t0
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` library, built by build_cuda at first use
+    (once, under a lock) with the argument types of its C entry points
+    bound; every entry point returns a CUDA error code (check_launch)."""
+
+    def __init__(self, name: str, signatures: dict):
+        self.name = name
+        self.source = PKG_DIR / "csrc" / f"{name}.cu"
+        self.signatures = signatures    # entry point -> ctypes argtypes
+        self.build_seconds: float | None = None
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self):
+        """Compile (or load the cached) library; returns it."""
+        with self._lock:
+            if self._lib is None:
+                lib, self.build_log, self.build_seconds = build_cuda(
+                    self.name, self.source)
+                for fn, argtypes in self.signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                self._lib = lib
+        return self._lib
 
 
 def check_launch(lib, rc: int, what: str):

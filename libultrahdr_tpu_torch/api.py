@@ -11,12 +11,12 @@ encode setters and scenarios (SDR intents, compressed intents, presets,
 boosts), effects and the SRGB/RGBA8888 decode output come with later slices
 (ROADMAP.md).
 
-    enc = UhdrEncoder(device="cuda")
+    enc = UhdrEncoder()                 # the card; device="cpu" asks for the CPU
     enc.set_raw_image(hdr, ImgLabel.HDR)
     enc.set_quality(95, ImgLabel.BASE)
     data = enc.encode()
 
-    dec = UhdrDecoder(device="cuda")
+    dec = UhdrDecoder()
     dec.set_image(data)
     dec.set_out_color_transfer(ColorTransfer.HLG)
     dec.set_out_img_format(ImgFmt.RGBA1010102)
@@ -77,9 +77,10 @@ def _validate_hdr_image(img: RawImage):
 
 
 class UhdrEncoder:
-    """uhdr_create_encoder + the API-0 uhdr_enc_* calls, on `device`."""
+    """uhdr_create_encoder + the API-0 uhdr_enc_* calls, on `device` (the
+    card unless the caller asks for the CPU)."""
 
-    def __init__(self, *, device):
+    def __init__(self, *, device="cuda"):
         self.device = resolve_device(device)
         self._reset_state()
 
@@ -182,10 +183,11 @@ class UhdrEncoder:
 
 class UhdrDecoder:
     """uhdr_create_decoder + uhdr_dec_* (ultrahdr_api.h:598-830), on
-    `device`.  Defaults as the reference: RGBAF16 output, LINEAR transfer,
-    max display boost FLT_MAX."""
+    `device` (the card unless the caller asks for the CPU).  Defaults as the
+    reference: RGBAF16 output, LINEAR transfer, max display boost
+    FLT_MAX."""
 
-    def __init__(self, *, device):
+    def __init__(self, *, device="cuda"):
         self.device = resolve_device(device)
         self._reset_state()
 

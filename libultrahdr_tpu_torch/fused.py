@@ -1,16 +1,21 @@
-"""The fused single-device programs: the API-0 P010 encode and the decode.
+"""The fused single-device programs: the API-0 encodes and the decode.
 
-Port of the P010 encode and the single-image decode of
+Port of the API-0 encodes and the single-image decode of
 ``libultrahdr_tpu/fused.py``, with raw transfers (the vw/delta upload wires,
-the coefficient wires and the download wire stay unported).
+the RGB channel wires, the coefficient wires and the download wire stay
+unported).
 
-**Encode** (the JAX ``_fused_api0_p010``): raw P010 planes in, JPEG_R bytes
-out.  On the device, in eager PyTorch plus the hand-written pack kernel:
+**Encode** (the JAX ``_fused_api0_p010``, ``_fused_api0_rgb`` and
+``_fused_api0_yuv444_10``): raw HDR planes in, JPEG_R bytes out.  On the
+device, in eager PyTorch plus the hand-written pack kernel:
 
-1. P010 unpack                          (ops/pixel.unpack_p010)
-2. tone map to 4:2:0 SDR                (ops/tonemap.tonemap_to_yuv)
+1. unpack: P010, RGBA1010102, RGBAF16 (sanitized) or YUV444_10
+                                        (ops/pixel.unpack_*)
+2. tone map to the SDR: 4:2:0 planes for P010, an RGBA8888 image for the RGB
+   formats, 4:4:4 planes for YUV444_10  (ops/tonemap.tonemap_to_*)
 3. one-pass gain map                    (ops/gainmap.generate_gainmap_onepass)
-4. MCU pad, DCT and quantisation of the base and gain-map planes
+4. MCU pad, DCT and quantisation of the base (4:2:0 for P010, else 4:4:4,
+   an RGB SDR through its P3 YCbCr) and gain-map planes
                                         (_scan_coeffs, jpeg/dct.forward_plane)
 5. Huffman symbols, bit packing and compaction of BOTH scans in one launch
                                         (jpeg/pack_kernel.pack_scan)
@@ -19,7 +24,8 @@ The host then downloads the words and block lengths once, joins each scan's
 restart rows (native.join_blocks, shared C++), writes the JPEG headers
 (jpeg/encoder.assemble_jpeg) and the MPF/ISO container
 (container/jpegr_container.append_gainmap).  Both JPEGs carry one restart
-interval per MCU row, as the JAX package's fused encode does.
+interval per MCU row, as the JAX package's fused encode does.  The JAX
+package packs the two scans apart; the joined bytes are the same.
 
 **Decode** (the JAX ``_decode_device_core``): the host splits and parses the
 file and Huffman-decodes both scans (``decode_coefficients``, shared C++),
@@ -100,6 +106,38 @@ def _scan_coeffs(planes, sampling, qtables):
     return coeffs, layout
 
 
+def _gainmap_scan(gm, multichannel: bool, map_quality: int):
+    """The gain map's (coeffs, layout): a 3-channel map as 4:4:4 YCbCr, a
+    1-channel map as 4:0:0 (the JAX ``_pack_gainmap`` without its pack: the
+    port packs both scans of a request in one launch)."""
+    mq_luma = scaled_quant_table(STD_LUMA_QUANT, map_quality)
+    mq_chroma = scaled_quant_table(STD_CHROMA_QUANT, map_quality)
+    if multichannel:
+        return _scan_coeffs(_rgb_to_ycbcr(gm), _SAMPLING_444,
+                            [mq_luma, mq_chroma, mq_chroma])
+    return _scan_coeffs([gm[0]], _SAMPLING_400, [mq_luma])
+
+
+def _base_scan(planes, sampling, quality: int):
+    """The base image's (coeffs, layout) from its Y, Cb, Cr u8 planes."""
+    qluma = scaled_quant_table(STD_LUMA_QUANT, quality)
+    qchroma = scaled_quant_table(STD_CHROMA_QUANT, quality)
+    return _scan_coeffs(planes, sampling, [qluma, qchroma, qchroma])
+
+
+def _onepass_gainmap(sdr_vals, hdr_vals, *, sdr_fmt: ImgFmt, hdr_fmt: ImgFmt,
+                     cg: ColorGamut, ct: ColorTransfer, scale: int,
+                     multichannel: bool, gamma: float, use_base_cg: bool):
+    """The API-0 one-pass gain map against the tone-mapped (Display-P3)
+    SDR."""
+    max_boost = colors.reference_display_peak_nits(ct) / colors.SDR_WHITE_NITS
+    return gainmap_ops.generate_gainmap_onepass(
+        sdr_vals, hdr_vals, sdr_fmt=sdr_fmt, hdr_fmt=hdr_fmt,
+        sdr_cg=ColorGamut.DISPLAY_P3, hdr_cg=cg, ct=ct, scale=scale,
+        multichannel=multichannel, gamma=gamma, use_luminance=False,
+        sdr_is_601=False, use_base_cg=use_base_cg, max_boost=max_boost)
+
+
 def _api0_p010_block_buffers(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
                              rng: ColorRange, scale: int, multichannel: bool,
                              gamma: float, quality: int, map_quality: int,
@@ -110,37 +148,75 @@ def _api0_p010_block_buffers(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
     hdr_vals = pixel.unpack_p010(y, uv, rng, h, w)
     y8, u8, v8 = tonemap_ops.tonemap_to_yuv(hdr_vals, ImgFmt.P010, cg, ct)
     sdr_vals = pixel.unpack_yuv8(y8, u8, v8, 2, 2, h, w)
-    max_boost = colors.reference_display_peak_nits(ct) / colors.SDR_WHITE_NITS
-    gm = gainmap_ops.generate_gainmap_onepass(
-        sdr_vals, hdr_vals, sdr_fmt=ImgFmt.YUV420, hdr_fmt=ImgFmt.P010,
-        sdr_cg=ColorGamut.DISPLAY_P3, hdr_cg=cg, ct=ct, scale=scale,
-        multichannel=multichannel, gamma=gamma, use_luminance=False,
-        sdr_is_601=False, use_base_cg=use_base_cg, max_boost=max_boost)
+    gm = _onepass_gainmap(sdr_vals, hdr_vals, sdr_fmt=ImgFmt.YUV420,
+                          hdr_fmt=ImgFmt.P010, cg=cg, ct=ct, scale=scale,
+                          multichannel=multichannel, gamma=gamma,
+                          use_base_cg=use_base_cg)
+    return [_base_scan([y8, u8, v8], _SAMPLING_420, quality),
+            _gainmap_scan(gm, multichannel, map_quality)]
 
-    qluma = scaled_quant_table(STD_LUMA_QUANT, quality)
-    qchroma = scaled_quant_table(STD_CHROMA_QUANT, quality)
-    base = _scan_coeffs([y8, u8, v8], _SAMPLING_420, [qluma, qchroma, qchroma])
-    mq_luma = scaled_quant_table(STD_LUMA_QUANT, map_quality)
-    mq_chroma = scaled_quant_table(STD_CHROMA_QUANT, map_quality)
-    if multichannel:
-        gmap = _scan_coeffs(_rgb_to_ycbcr(gm), _SAMPLING_444,
-                            [mq_luma, mq_chroma, mq_chroma])
+
+def _rgb_vals_to_yuv444_planes(rgb_vals, cg: ColorGamut):
+    """convert_raw_input_to_ycbcr without chroma sampling
+    (gainmapmath.cpp:1291-1501 RGBA8888 branch): (3,H,W) [0,1] -> 3 u8."""
+    yuv = colors.apply_3x3(colors.rgb2yuv_matrix_for_gamut(cg), rgb_vals)
+    y = torch.clamp(yuv[0] * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    u = torch.clamp(yuv[1] * 255.0 + 0.5 + 128.0, 0, 255).to(torch.uint8)
+    v = torch.clamp(yuv[2] * 255.0 + 0.5 + 128.0, 0, 255).to(torch.uint8)
+    return y, u, v
+
+
+def _api0_rgb_block_buffers(packed, *, fmt: ImgFmt, cg: ColorGamut,
+                            ct: ColorTransfer, scale: int,
+                            multichannel: bool, gamma: float, quality: int,
+                            map_quality: int, use_base_cg: bool):
+    """Packed RGBA1010102 ((H, W) int32) or RGBAF16 ((H, W, 4) int16) HDR on
+    the device -> [(coeffs, layout)] of the base and the gain-map scan (the
+    JAX ``_fused_api0_rgb``): tone map to an RGBA8888 SDR
+    (jpegr.cpp:2040-2042), the gain map from it, a 4:4:4 base."""
+    if fmt == ImgFmt.RGBA1010102:
+        hdr_vals = pixel.unpack_rgba1010102(packed)
     else:
-        gmap = _scan_coeffs([gm[0]], _SAMPLING_400, [mq_luma])
-    return [base, gmap]
+        hdr_vals = pixel.unpack_rgbaf16(packed)
+    sdr_vals = pixel.unpack_rgba8888(
+        tonemap_ops.tonemap_to_rgba8888(hdr_vals, fmt, cg, ct))
+    gm = _onepass_gainmap(sdr_vals, hdr_vals, sdr_fmt=ImgFmt.RGBA8888,
+                          hdr_fmt=fmt, cg=cg, ct=ct, scale=scale,
+                          multichannel=multichannel, gamma=gamma,
+                          use_base_cg=use_base_cg)
+    planes = _rgb_vals_to_yuv444_planes(sdr_vals, ColorGamut.DISPLAY_P3)
+    return [_base_scan(planes, _SAMPLING_444, quality),
+            _gainmap_scan(gm, multichannel, map_quality)]
 
 
-def _fused_api0_p010_body(y, uv, *, pack=pack_kernel.pack_scan, **kw):
-    """P010 HDR planes on the device -> (words, blen_all, scans): both
-    scans' streams concatenated and packed in ONE launch, so the host drains
-    each image with one download of words and one of block lengths.
-    `scans` are the [(coeffs, layout)] the words were packed from; `pack`
-    is the entropy stage (the dispatcher, or its plain version to compare
-    against)."""
-    scans = _api0_p010_block_buffers(y, uv, **kw)
+def _api0_yuv444_10_block_buffers(y, u, v, *, cg: ColorGamut,
+                                  ct: ColorTransfer, rng: ColorRange,
+                                  scale: int, multichannel: bool,
+                                  gamma: float, quality: int,
+                                  map_quality: int, use_base_cg: bool):
+    """30bpp YCbCr444 HDR planes on the device -> [(coeffs, layout)] of the
+    base and the gain-map scan (the JAX ``_fused_api0_yuv444_10``,
+    jpegr.cpp:178-190: an 8-bit YUV444 SDR, a 4:4:4 base)."""
+    h, w = y.shape
+    hdr_vals = pixel.unpack_yuv444_10(y, u, v, rng)
+    y8, u8, v8 = tonemap_ops.tonemap_to_yuv(hdr_vals, ImgFmt.YUV444_10, cg,
+                                            ct, out_yuv420=False)
+    sdr_vals = pixel.unpack_yuv8(y8, u8, v8, 1, 1, h, w)
+    gm = _onepass_gainmap(sdr_vals, hdr_vals, sdr_fmt=ImgFmt.YUV444,
+                          hdr_fmt=ImgFmt.YUV444_10, cg=cg, ct=ct,
+                          scale=scale, multichannel=multichannel,
+                          gamma=gamma, use_base_cg=use_base_cg)
+    return [_base_scan([y8, u8, v8], _SAMPLING_444, quality),
+            _gainmap_scan(gm, multichannel, map_quality)]
+
+
+def _pack_scans(scans, pack):
+    """Both scans' streams concatenated and packed in ONE launch, so the
+    host drains a request with one download of words and one of block
+    lengths; `pack` is the entropy stage (the dispatcher, or its plain
+    version to compare against)."""
     inputs = [device_entropy.stream_inputs(c, lay) for c, lay in scans]
-    words, blen = pack(*(torch.cat(parts) for parts in zip(*inputs)))
-    return words, blen, scans
+    return pack(*(torch.cat(parts) for parts in zip(*inputs)))
 
 
 def fetch_blocks_multi(words: np.ndarray, parts) -> list[bytes]:
@@ -212,30 +288,51 @@ def _resolve_scale(jr, img) -> int:
     return scale
 
 
+def _use_base_cg(sdr_cg: ColorGamut, hdr_cg: ColorGamut, write_xmp) -> bool:
+    """Gamut-application-space selection (jpegr.cpp:600-646)."""
+    if sdr_cg == hdr_cg:
+        return True
+    return bool(write_xmp) or not (
+        hdr_cg == ColorGamut.BT2100
+        or (hdr_cg == ColorGamut.DISPLAY_P3 and sdr_cg != ColorGamut.BT2100))
+
+
+# signed torch carrier of a numpy sample width
+_CARRIER = {2: np.int16, 4: np.int32}
+
+
+def upload_planes(planes, device: torch.device):
+    """Raw upload of 16- or 32-bit sample planes as int16 / int32 views of
+    their unsigned samples (one copy each, no repacking)."""
+    return [torch.from_numpy(np.ascontiguousarray(p).view(
+        _CARRIER[p.dtype.itemsize])).to(device) for p in planes]
+
+
+def _p010_planes(img):
+    return [np.asarray(p, np.uint16) for p in img.planes[:2]]
+
+
 def upload_p010(img, device: torch.device):
     """Raw upload of the two P010 planes as int16 views of their u16
-    samples (one copy each, no repacking)."""
-    return [torch.from_numpy(
-        np.ascontiguousarray(p, np.uint16).view(np.int16)).to(device)
-        for p in img.planes[:2]]
+    samples."""
+    return upload_planes(_p010_planes(img), device)
 
 
-def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
-                           pack=pack_kernel.pack_scan) -> bytes:
-    """JpegR.encode_api0 on P010 input, on `jr.device`.
-
-    API-0 SDR is always tone-mapped into P3 (jpegr.cpp:1985-1987), so the
-    gamut-space selection (jpegr.cpp:600-646) reduces to
-    cg != BT2100 or write_xmp."""
+def _encode_api0(jr, img, quality: int, exif: bytes | None, block_buffers,
+                 planes, base_sampling, pack, **kw) -> bytes:
+    """The API-0 encode of one HDR image on `jr.device`: upload `planes`,
+    run `block_buffers` (steps 1-4) and one `pack` of both scans on the
+    device, download once, join both scans and write the container.
+    API-0 SDR is always tone-mapped into P3 (jpegr.cpp:1985-1987)."""
     cg, ct = ColorGamut(img.cg), ColorTransfer(img.ct)
     scale = _resolve_scale(jr, img)
-    use_base_cg = (cg != ColorGamut.BT2100) or bool(jr.write_xmp)
-    y, uv = upload_p010(img, jr.device)
-    words, blen, scans = _fused_api0_p010_body(
-        y, uv, pack=pack, cg=cg, ct=ct, rng=ColorRange(img.range),
-        scale=scale, multichannel=jr.use_multi_channel_gainmap,
-        gamma=jr.gamma, quality=int(quality),
-        map_quality=jr.map_compress_quality, use_base_cg=use_base_cg)
+    use_base_cg = _use_base_cg(ColorGamut.DISPLAY_P3, cg, jr.write_xmp)
+    scans = block_buffers(
+        *upload_planes(planes, jr.device), cg=cg, ct=ct, scale=scale,
+        multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
+        quality=int(quality), map_quality=jr.map_compress_quality,
+        use_base_cg=use_base_cg, **kw)
+    words, blen = _pack_scans(scans, pack)
     words_h = words.cpu().numpy().view(np.uint32)
     blen_h = blen.cpu().numpy().astype(np.uint16)
     (_, bl), (_, gl) = scans
@@ -244,8 +341,36 @@ def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
         words_h, [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
     metadata = _onepass_metadata(jr, ct, use_base_cg)
     return _assemble_container(jr, img.w, img.h, quality, base_scan,
-                               _SAMPLING_420, ColorGamut.DISPLAY_P3, scale,
+                               base_sampling, ColorGamut.DISPLAY_P3, scale,
                                gm_scan, metadata, exif, ct, cg)
+
+
+def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
+                           pack=pack_kernel.pack_scan) -> bytes:
+    """JpegR.encode_api0 on P010 input (4:2:0 base)."""
+    return _encode_api0(jr, img, quality, exif, _api0_p010_block_buffers,
+                        _p010_planes(img), _SAMPLING_420, pack,
+                        rng=ColorRange(img.range))
+
+
+def encode_api0_rgb_fused(jr, img, quality: int, exif: bytes | None, *,
+                          pack=pack_kernel.pack_scan) -> bytes:
+    """JpegR.encode_api0 on packed RGBA1010102 (u32 words) or RGBAF16
+    ((H, W, 4) half floats or their u16 patterns) input (4:4:4 base), with
+    a raw upload."""
+    return _encode_api0(jr, img, quality, exif, _api0_rgb_block_buffers,
+                        img.planes[:1], _SAMPLING_444, pack,
+                        fmt=ImgFmt(img.fmt))
+
+
+def encode_api0_yuv444_10_fused(jr, img, quality: int, exif: bytes | None,
+                                *, pack=pack_kernel.pack_scan) -> bytes:
+    """JpegR.encode_api0 on YUV444_10 input (three u16 planes of 10-bit
+    samples; 4:4:4 base)."""
+    return _encode_api0(
+        jr, img, quality, exif, _api0_yuv444_10_block_buffers,
+        [np.asarray(p, np.uint16) for p in img.planes[:3]], _SAMPLING_444,
+        pack, rng=ColorRange(img.range))
 
 
 # ---------------------------------------------------------------------------

@@ -1,67 +1,61 @@
 """Huffman symbol generation, bit packing and compaction of JPEG blocks.
 
-Port of the Pallas TPU kernel ``libultrahdr_tpu/jpeg/pack_kernel.py``
-``_pack_tiles_v3`` (entry ``pack_scan_tiles``), in three pieces:
+Port of the three Pallas TPU kernels of ``libultrahdr_tpu/jpeg/pack_kernel.py``,
+each as a trio of a plain PyTorch version, the wrapper of a hand-written CUDA
+kernel and a dispatcher:
 
-- ``pack_scan_plain``: the plain PyTorch version.  Bit math in int64
-  (torch's uint32 op coverage is thin); the tests hold it against the TPU
-  kernel in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel
-  against it on the card.
-- ``PACK_KERNEL``: the wrapper of the hand-written CUDA kernel
-  ``csrc/pack_kernel.cu`` (see its header for the design and what bounds it
-  on the H100).  It builds the kernel with nvcc for sm_90a at first use into
-  ``_build/``, launches it on PyTorch's current stream, raises on a refused
-  launch, and counts its launches in ``PACK_KERNEL.launches``.
-- ``pack_scan``: the dispatcher.  A CPU tensor goes to the plain version, a
-  CUDA tensor to the kernel; anything else raises.  Nothing falls back: a
-  failed build or launch propagates.
+=================  ==================  =================  =====================
+TPU kernel         plain version       kernel wrapper     dispatcher
+=================  ==================  =================  =====================
+_pack_tiles_v3     pack_scan_plain     PACK_KERNEL        pack_scan
+pack_blocks_pallas pack_blocks_plain   PACK_BLOCKS_KERNEL pack_blocks
+pack_tiles_pallas  pack_tiles_plain    PACK_TILES_KERNEL  pack_tiles
+=================  ==================  =================  =====================
 
-All three take the stream inputs of ``device_entropy.stream_inputs``
-(stream (n, 64) int16 zigzag coefficients in MCU stream order, dc_diff (n,)
-int32, is_luma (n,) int32) and return (words (total,) int32 holding u32 bit
-patterns, blen (n,) int32).  Block b's MSB-first bitstream sits word-aligned
-at the exclusive prefix sum of ceil(blen/32); blen has no restart-row pad.
+- The plain versions do their bit math in int64 (torch's uint32 op coverage
+  is thin); the tests hold them against the TPU kernels in interpret mode,
+  and ``chip_smoke.py`` holds each CUDA kernel against its plain version on
+  the card.
+- The wrappers build their kernel with nvcc for sm_90a at first use into
+  ``_build/`` (``csrc/pack_kernel.cu``; ``csrc/block_pack_kernel.cu`` for
+  both of the others, see each file's header for the design and what bounds
+  it on the H100), launch it on PyTorch's current stream, raise on a refused
+  launch, and count their launches in ``.launches``.
+- The dispatchers send a CPU tensor to the plain version and a CUDA tensor
+  to the kernel; anything else raises.  Nothing falls back: a failed build
+  or launch propagates.
+
+``pack_scan`` (the "v3" engine, the one the encode runs) takes the stream
+inputs of ``device_entropy.stream_inputs`` (stream (n, 64) int16 zigzag
+coefficients in MCU stream order, dc_diff (n,) int32, is_luma (n,) int32)
+and returns (words (total,) int32 holding u32 bit patterns, blen (n,)
+int32): block b's MSB-first bitstream sits word-aligned at the exclusive
+prefix sum of ceil(blen/32), and blen has no restart-row pad.
+
+``pack_blocks`` ("v1") and ``pack_tiles`` ("v2") take the slots of
+``slots_for_kernel``: (n, 72) int32 payloads (u32 patterns, each below
+2^length) and lengths, the 65 symbol slots of every block, its row's
+byte-align pad as the 66th slot (on a row's last block) and zero padding.
+Their blen includes that pad.  ``pack_blocks`` writes one 54-word buffer per
+block in the blocks-in-lanes layout (54, n), which ``compact_blocks_t``
+compacts; ``pack_tiles`` compacts each 2048-block tile within a static word
+budget, and ``stitch_tiles`` chains the tiles' live prefixes.  No request of
+the library runs these two: their path is the JAX package's own entry
+points, driven end to end by ``testing.pack_scans_v1`` / ``pack_scans_v2``,
+and their joined scans are byte-identical to the v3 engine's.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
 
 import numpy as np
 import torch
 
-from .._buildlib import PKG_DIR, build_cuda, check_launch
+from .._buildlib import CudaLibrary, check_launch
 from ..errors import unsupported
-from .tables import AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA
-
-
-@functools.lru_cache(maxsize=1)
-def packed_luts() -> np.ndarray:
-    """(544,) u32 Huffman table, code << 5 | length, laid out
-    [DC luma 16][DC chroma 16][AC luma 256][AC chroma 256] (the DC tables'
-    entries 12..15 are unused categories, zero like the TPU kernel's)."""
-    def packed(t, n):
-        return (np.asarray(t.code_of[:n], np.uint32) << 5) \
-            | np.asarray(t.size_of[:n], np.uint32)
-    return np.concatenate([packed(DC_LUMA, 16), packed(DC_CHROMA, 16),
-                           packed(AC_LUMA, 256), packed(AC_CHROMA, 256)])
-
-
-def _bit_size(v: torch.Tensor) -> torch.Tensor:
-    """JPEG magnitude category of int64 values, capped at 15 like the TPU
-    kernel's 15-compare _bit_size_vec: frexp's exponent is bit_length(|v|)
-    exactly for |v| < 2^24."""
-    e = torch.frexp(v.abs().to(torch.float32)).exponent.to(torch.int64)
-    return e.clamp(max=15)
-
-
-def _value_bits(v: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
-    """One's-complement style extra bits (T.81 F.1.2.1), int64."""
-    one = torch.ones_like(size)
-    x = torch.where(v < 0, v + (one << size) - 1, v)
-    return x & ((one << size) - 1)
+from . import device_entropy as de
+from .device_entropy import packed_luts
 
 
 def _u32_bits_as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -69,100 +63,52 @@ def _u32_bits_as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
-def pack_scan_plain(stream: torch.Tensor, dc_diff: torch.Tensor,
-                    is_luma: torch.Tensor):
-    """Plain PyTorch version of the pack kernel (any device).
-
-    Every block gets 65 slots [DC, 63 AC positions (a ZRL or a code, never
-    both), EOB] of (payload, length); the in-block exclusive scan of the
-    lengths and the block's word offset give each slot's absolute bit
-    position, and each slot (<= 26 bits) lands in at most two words through
-    two index_adds (the bit ranges are disjoint, so add == or)."""
-    dev = stream.device
-    n = stream.shape[0]
-    lut = torch.from_numpy(packed_luts().astype(np.int64)).to(dev)
-    code, length = lut >> 5, lut & 31
-    chroma = (is_luma == 0).to(torch.int64)              # (n,) table row
-    dc_base = chroma * 16
-    ac_base = 32 + chroma * 256
-
-    # ---- DC slot --------------------------------------------------------
-    d = dc_diff.to(torch.int64)
-    ds = _bit_size(d)
-    dc_pay = (code[dc_base + ds] << ds) | _value_bits(d, ds)
-    dc_len = length[dc_base + ds] + ds
-
-    # ---- AC slots -------------------------------------------------------
-    ac = stream[:, 1:].to(torch.int64)                   # (n, 63)
-    nz = ac != 0
-    k = torch.arange(1, 64, dtype=torch.int64, device=dev)
-    incl = torch.cummax(torch.where(nz, k, 0), dim=1).values
-    prev_nz = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
-    last_nz = incl[:, -1:]
-    zrl_on = ~nz & ((k - prev_nz) % 16 == 0) & (k < last_nz)
-    run = (k - prev_nz - 1) % 16
-    asz = _bit_size(ac)
-    sym = ac_base[:, None] + torch.where(nz, (run << 4) | asz, 0)
-    zrl = ac_base[:, None] + 0xF0
-    ac_pay = torch.where(nz, (code[sym] << asz) | _value_bits(ac, asz),
-                         torch.where(zrl_on, code[zrl], 0))
-    ac_len = torch.where(nz, length[sym] + asz,
-                         torch.where(zrl_on, length[zrl], 0))
-
-    eob_on = last_nz[:, 0] < 63
-    eob_pay = torch.where(eob_on, code[ac_base], 0)
-    eob_len = torch.where(eob_on, length[ac_base], 0)
-
-    pays = torch.cat([dc_pay[:, None], ac_pay, eob_pay[:, None]], dim=1)
-    lens = torch.cat([dc_len[:, None], ac_len, eob_len[:, None]], dim=1)
-
-    # ---- placement ------------------------------------------------------
-    blen = lens.sum(dim=1)
-    wlen = (blen + 31) >> 5
-    dest = torch.cumsum(wlen, 0) - wlen
-    total = int(wlen.sum())
-    bitpos = dest[:, None] * 32 + torch.cumsum(lens, 1) - lens
+def _place_bits(pays: torch.Tensor, lens: torch.Tensor,
+                first_word: torch.Tensor, size: int) -> torch.Tensor:
+    """OR slot bits MSB-first into a zeroed (size,) int64 buffer of u32
+    words: row b's slots (int64 payload < 2^length, length <= 26) follow each
+    other from bit 0 of word first_word[b].  The in-row exclusive scan of the
+    lengths gives each slot's absolute bit position, and each slot lands in
+    at most two words through two index_adds (the bit ranges are disjoint,
+    so add == or)."""
+    bitpos = first_word[:, None] * 32 + torch.cumsum(lens, 1) - lens
     w = (bitpos >> 5).reshape(-1)
     s = (bitpos & 31).reshape(-1)
     msb = (pays << (32 - lens)).reshape(-1)              # MSB-aligned u32
     hi = msb >> s
     lo = (msb & ((torch.ones_like(s) << s) - 1)) << (32 - s)
-    words = torch.zeros(total + 1, dtype=torch.int64, device=dev)
+    words = torch.zeros(size + 1, dtype=torch.int64, device=pays.device)
     words.index_add_(0, w, hi)
     words.index_add_(0, w + 1, lo)
-    return _u32_bits_as_i32(words[:total]), blen.to(torch.int32)
+    return words[:size]
+
+
+def pack_scan_plain(stream: torch.Tensor, dc_diff: torch.Tensor,
+                    is_luma: torch.Tensor):
+    """Plain PyTorch version of the pack kernel (any device): every block's
+    65 slots (device_entropy.block_slots) placed at the block's word offset,
+    the exclusive prefix sum of ceil(blen/32)."""
+    pays, lens = de.block_slots(stream, dc_diff, is_luma)
+    blen = lens.sum(dim=1)
+    wlen = (blen + 31) >> 5
+    dest = torch.cumsum(wlen, 0) - wlen
+    words = _place_bits(pays, lens, dest, int(wlen.sum()))
+    return _u32_bits_as_i32(words), blen.to(torch.int32)
+
+
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+PACK_LIB = CudaLibrary("pack_kernel", {
+    "uhdr_pack_blen": [_PTR] * 5 + [_I64, _PTR],
+    "uhdr_pack_words": [_PTR] * 6 + [_I64, _PTR]})
 
 
 class _PackKernel:
-    """Wrapper of csrc/pack_kernel.cu: build at first use, per-device
-    tables, launch, launch count."""
-
-    SOURCE = PKG_DIR / "csrc" / "pack_kernel.cu"
+    """Wrapper of csrc/pack_kernel.cu: per-device tables, launch, launch
+    count."""
 
     def __init__(self):
         self.launches = 0
-        self.build_seconds: float | None = None
-        self.build_log = ""
-        self._lib = None
         self._luts: dict[torch.device, torch.Tensor] = {}
-        self._lock = threading.Lock()
-
-    def build(self):
-        """Compile (or load the cached) kernel library; returns it."""
-        with self._lock:
-            if self._lib is None:
-                lib, self.build_log, self.build_seconds = build_cuda(
-                    "pack_kernel", self.SOURCE)
-                args = [ctypes.c_void_p] * 4
-                lib.uhdr_pack_blen.argtypes = args + [
-                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-                lib.uhdr_pack_blen.restype = ctypes.c_int
-                lib.uhdr_pack_words.argtypes = args + [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                    ctypes.c_void_p]
-                lib.uhdr_pack_words.restype = ctypes.c_int
-                self._lib = lib
-        return self._lib
 
     def _lut(self, dev: torch.device) -> torch.Tensor:
         if dev not in self._luts:
@@ -188,7 +134,7 @@ class _PackKernel:
                     f"{tuple(t.shape)} on {t.device}")
         if stream.data_ptr() % 16:
             raise ValueError("pack kernel: stream must be 16-byte aligned")
-        lib = self.build()
+        lib = PACK_LIB.build()
         lut = self._lut(dev)
         cs = torch.cuda.current_stream(dev).cuda_stream
         blen = torch.empty(n, dtype=torch.int32, device=dev)
@@ -219,3 +165,223 @@ def pack_scan(stream: torch.Tensor, dc_diff: torch.Tensor,
     if stream.device.type == "cuda":
         return PACK_KERNEL(stream, dc_diff, is_luma)
     raise unsupported(f"no pack implementation for device {stream.device}")
+
+
+# ---------------------------------------------------------------------------
+# v1 / v2: slot inputs -> block buffers (54, n), and per-tile compaction
+
+_SLOTS = 72                 # 65 symbol slots + the row pad + zero padding
+_CAP = de._BLOCK_CAP_WORDS  # 54 words per block buffer
+_TILE = 2048                # blocks per compacted tile
+
+
+def slots_for_kernel(coeff_planes, layout: de.ScanLayout):
+    """Coefficient planes -> the (n_blocks, 72) int32 slot payloads and
+    lengths of one scan: its blocks' 65 symbol slots, the row byte-align pad
+    (1-bits, T.81 F.1.2.3) as a 66th slot on each MCU row's last block, and
+    zero slots up to 72 (the JAX ``_slots_for_kernel``)."""
+    pays, lens = de.slot_symbols(coeff_planes, layout)   # (rows, bpr, 65)
+    n_rows, bpr = layout.mcus_h, layout.bpr
+    pad_len = (-lens.sum(dim=(1, 2))) % 8                # (rows,)
+    last = torch.zeros((n_rows, bpr), dtype=torch.bool, device=lens.device)
+    last[:, -1] = True
+    pad_len = torch.where(last, pad_len[:, None], 0)
+    pad_pay = (torch.ones_like(pad_len) << pad_len) - 1
+    zero = torch.zeros((n_rows, bpr, _SLOTS - 66), dtype=torch.int64,
+                       device=lens.device)
+    pays = torch.cat([pays, pad_pay[..., None], zero], dim=-1)
+    lens = torch.cat([lens, pad_len[..., None], zero], dim=-1)
+    n = n_rows * bpr
+    return (pays.reshape(n, _SLOTS).to(torch.int32),
+            lens.reshape(n, _SLOTS).to(torch.int32))
+
+
+def pack_blocks_plain(pays: torch.Tensor, lens: torch.Tensor):
+    """Plain version of the block pack (any device): (n, 72) slots ->
+    (bb_t (54, n) int32, blen (n,) int32).  Block b's slots go MSB-first
+    into column b from its first word; words past blen are zero.  Every
+    block must fit its 54 words, as every block of slots_for_kernel does
+    (at most 1,701 of 1,728 bits)."""
+    pays64 = pays.to(torch.int64) & 0xFFFFFFFF
+    lens64 = lens.to(torch.int64)
+    n = pays64.shape[0]
+    first = torch.arange(n, dtype=torch.int64, device=pays.device) * _CAP
+    words = _place_bits(pays64, lens64, first, n * _CAP).view(n, _CAP)
+    return (_u32_bits_as_i32(words.T.contiguous()),
+            lens64.sum(dim=1).to(torch.int32))
+
+
+def pack_tiles_plain(pays: torch.Tensor, lens: torch.Tensor, budget: int):
+    """Plain version of the tile pack (any device): (n, 72) slots ->
+    (tiles (n_tiles, 2048 * budget) int32, blen (n,) int32).  The block
+    buffers of pack_blocks_plain, each tile of 2048 blocks compacted to its
+    front: block b's live words at its tile's exclusive prefix sum of
+    ceil(blen/32).  Words at or past the tile's budget are dropped, as the
+    TPU kernel drops them (check_tile_budgets detects it); the rest of a
+    tile is undefined, as on the TPU (read the live prefixes with
+    tile_live_words and stitch_tiles)."""
+    bb_t, blen = pack_blocks_plain(pays, lens)
+    n = blen.shape[0]
+    dev = blen.device
+    tile_words = _TILE * budget
+    n_tiles = -(-n // _TILE)
+    wlen = (blen.to(torch.int64) + 31) >> 5
+    excl = torch.cumsum(wlen, 0) - wlen
+    tile = torch.arange(n, dtype=torch.int64, device=dev) // _TILE
+    dest = excl - excl[tile * _TILE]                     # offset in its tile
+    k = torch.arange(_CAP, dtype=torch.int64, device=dev)
+    pos = dest[:, None] + k                              # (n, 54)
+    keep = (k < wlen[:, None]) & (pos < tile_words)
+    tiles = torch.empty(n_tiles * tile_words, dtype=torch.int32, device=dev)
+    tiles[(tile[:, None] * tile_words + pos)[keep]] = bb_t.T[keep]
+    return tiles.view(n_tiles, tile_words), blen
+
+
+BLOCK_PACK_LIB = CudaLibrary("block_pack_kernel", {
+    "uhdr_pack_blocks": [_PTR] * 4 + [_I64, _PTR],
+    "uhdr_pack_tiles": [_PTR] * 4 + [_I64, _I64, _PTR]})
+
+
+def _check_slots(what: str, pays: torch.Tensor, lens: torch.Tensor) -> int:
+    """Raise unless pays and lens are contiguous 16-byte aligned (n, 72)
+    int32 tensors on one CUDA device; returns n."""
+    dev = pays.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {dev}")
+    n = pays.shape[0] if pays.dim() == 2 else -1
+    for name, t in (("pays", pays), ("lens", lens)):
+        if (t.device != dev or t.dtype != torch.int32
+                or tuple(t.shape) != (n, _SLOTS) or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{what} kernel: {name} must be a contiguous 16-byte aligned "
+                f"int32 (n, {_SLOTS}) tensor on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    return n
+
+
+class _PackBlocksKernel:
+    """Wrapper of uhdr_pack_blocks (csrc/block_pack_kernel.cu): launch,
+    launch count."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, pays: torch.Tensor, lens: torch.Tensor):
+        n = _check_slots("block pack", pays, lens)
+        dev = pays.device
+        lib = BLOCK_PACK_LIB.build()
+        bb_t = torch.empty((_CAP, n), dtype=torch.int32, device=dev)
+        blen = torch.empty(n, dtype=torch.int32, device=dev)
+        check_launch(lib, lib.uhdr_pack_blocks(
+            pays.data_ptr(), lens.data_ptr(), bb_t.data_ptr(),
+            blen.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream),
+            "uhdr_pack_blocks")
+        self.launches += 1
+        return bb_t, blen
+
+
+class _PackTilesKernel:
+    """Wrapper of uhdr_pack_tiles (csrc/block_pack_kernel.cu): launch,
+    launch count."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, pays: torch.Tensor, lens: torch.Tensor, budget: int):
+        n = _check_slots("tile pack", pays, lens)
+        if not 1 <= budget <= _CAP:
+            raise ValueError(f"tile pack: budget {budget} not in [1, {_CAP}]")
+        dev = pays.device
+        lib = BLOCK_PACK_LIB.build()
+        tile_words = _TILE * budget
+        n_tiles = -(-n // _TILE)
+        tiles = torch.empty((n_tiles, tile_words), dtype=torch.int32,
+                            device=dev)
+        blen = torch.empty(n, dtype=torch.int32, device=dev)
+        check_launch(lib, lib.uhdr_pack_tiles(
+            pays.data_ptr(), lens.data_ptr(), tiles.data_ptr(),
+            blen.data_ptr(), n, tile_words,
+            torch.cuda.current_stream(dev).cuda_stream), "uhdr_pack_tiles")
+        self.launches += 1
+        return tiles, blen
+
+
+PACK_BLOCKS_KERNEL = _PackBlocksKernel()
+PACK_TILES_KERNEL = _PackTilesKernel()
+
+
+def pack_blocks(pays: torch.Tensor, lens: torch.Tensor):
+    """Dispatcher of the block pack: plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors.  No fallback between the two."""
+    if pays.device.type == "cpu":
+        return pack_blocks_plain(pays, lens)
+    if pays.device.type == "cuda":
+        return PACK_BLOCKS_KERNEL(pays, lens)
+    raise unsupported(f"no block pack implementation for device "
+                      f"{pays.device}")
+
+
+def pack_tiles(pays: torch.Tensor, lens: torch.Tensor, budget: int):
+    """Dispatcher of the tile pack: plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors.  No fallback between the two."""
+    if pays.device.type == "cpu":
+        return pack_tiles_plain(pays, lens, budget)
+    if pays.device.type == "cuda":
+        return PACK_TILES_KERNEL(pays, lens, budget)
+    raise unsupported(f"no tile pack implementation for device "
+                      f"{pays.device}")
+
+
+def compact_blocks_t(bb_t: torch.Tensor, blen: torch.Tensor,
+                     w_out: int) -> torch.Tensor:
+    """Block buffers (54, n) -> the (w_out,) int32 word stream: every
+    block's ceil(blen/32) live words in block order, then zeros; words past
+    w_out are dropped (the JAX ``compact_blocks_t``)."""
+    wlen = (blen.to(torch.int64) + 31) >> 5
+    keep = torch.arange(bb_t.shape[0], device=bb_t.device)[:, None] \
+        < wlen[None, :]
+    live = bb_t.T[keep.T]                                # block-major order
+    out = torch.zeros(w_out, dtype=torch.int32, device=bb_t.device)
+    m = min(w_out, live.numel())
+    out[:m] = live[:m]
+    return out
+
+
+def tile_live_words(blen: torch.Tensor) -> torch.Tensor:
+    """(n_tiles,) int32 live word count of each 2048-block tile."""
+    wlen = (blen.to(torch.int64) + 31) >> 5
+    wlen = torch.nn.functional.pad(wlen, (0, -wlen.shape[0] % _TILE))
+    return wlen.view(-1, _TILE).sum(dim=1).to(torch.int32)
+
+
+def stitch_tiles(parts) -> torch.Tensor:
+    """Chain per-tile compacted buffers into one contiguous stream: parts =
+    [(tiles (n_tiles, B), live (n_tiles,)), ...] -> the live prefixes of
+    every tile in order, (sum of live,) int32.  (The JAX ``stitch_tiles``
+    writes them into a buffer of the summed budgets and leaves the rest
+    undefined.)"""
+    out = []
+    for tiles, live in parts:
+        keep = torch.arange(tiles.shape[1], device=tiles.device)[None, :] \
+            < live[:, None]
+        out.append(tiles[keep])
+    return torch.cat(out)
+
+
+def check_tile_budgets(blen: np.ndarray, budget: int):
+    """Host-side: every tile must fit its word budget (the tile pack drops
+    the tail of an overflowing tile); raises PackOverflowError."""
+    wlen = (np.asarray(blen).astype(np.int64) + 31) >> 5
+    wlen = np.pad(wlen, (0, -wlen.size % _TILE))
+    per_tile = wlen.reshape(-1, _TILE).sum(axis=1)
+    limit = _TILE * budget
+    if (per_tile > limit).any():
+        raise de.PackOverflowError(
+            f"tile needs {int(per_tile.max())} words > tile budget {limit}")
+
+
+def block_buffers_kernel(coeff_planes, layout: de.ScanLayout):
+    """One scan's block buffers through the block pack: (bb_t (54, n),
+    blen (n,))."""
+    return pack_blocks(*slots_for_kernel(coeff_planes, layout))

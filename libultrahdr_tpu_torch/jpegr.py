@@ -1,10 +1,11 @@
-"""JPEG_R codec orchestration: encode API-0 for P010 input, fused decode.
+"""JPEG_R codec orchestration: encode API-0, fused decode.
 
 Port of the encode-API-0 part and the fused decode of
 ``libultrahdr_tpu/jpegr.py`` (class JpegR, after the reference's
 jpegr.cpp:135-200 and decodeJPEGR, jpegr.cpp:1384-1446).  A ``JpegR``
-carries the encoder knobs and the device it computes on; the device is an
-explicit argument, never looked up, and a CUDA request without a GPU raises.
+carries the encoder knobs and the device it computes on: the card
+(``device="cuda"``) unless the caller asks for the CPU, and a CUDA request
+without a GPU raises rather than running elsewhere.
 
 The decode takes the fused route only: HLG or PQ output as RGBA1010102,
 LINEAR as RGBAF16, from a baseline JPEG_R whose base is 4:4:4, 4:2:2, 4:2:0
@@ -22,7 +23,6 @@ from . import fused
 from .container import icc as icc_mod
 from .container import iso21496, jpegr_container, segments, xmp
 from .errors import UhdrError, UhdrErrorCode, invalid_param, unsupported
-from .fused import encode_api0_p010_fused
 from .jpeg.decoder import get_output_sampling_format, parse_jpeg
 from .ops import apply as apply_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, EncPreset,
@@ -51,8 +51,8 @@ _SAMPLING_KEY = {ImgFmt.YUV444: "444", ImgFmt.YUV440: "440",
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for an explicit `device` request; a CUDA request
-    without a usable GPU raises instead of running elsewhere."""
+    """torch.device for a `device` request; a CUDA request without a usable
+    GPU raises instead of running elsewhere."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -69,7 +69,7 @@ class JpegR:
     """Codec instance carrying the encoder knobs (jpegr.cpp:135-148) and
     its compute device."""
 
-    def __init__(self, *, device,
+    def __init__(self, *, device="cuda",
                  map_dimension_scale_factor: int = DEFAULT_MAP_DIMENSION_SCALE_FACTOR,
                  map_compress_quality: int = DEFAULT_MAP_COMPRESS_QUALITY,
                  use_multi_channel_gainmap: bool = DEFAULT_USE_MULTI_CHANNEL_GAINMAP,
@@ -94,7 +94,7 @@ class JpegR:
             if write_xmp is None else bool(write_xmp)
 
     @classmethod
-    def from_reference_knobs(cls, d: dict, *, device) -> "JpegR":
+    def from_reference_knobs(cls, d: dict, *, device="cuda") -> "JpegR":
         """A JpegR configured like a JAX-package JpegR whose knob
         attributes (KNOBS) are given as plain Python numbers in `d`."""
         missing = [k for k in KNOBS if k not in d]
@@ -104,16 +104,17 @@ class JpegR:
 
     def encode_api0(self, hdr: RawImage, quality: int = 95,
                     exif: bytes | None = None) -> bytes:
-        """encodeJPEGR API-0 (jpegr.cpp:173-200): HDR intent in, JPEG_R out,
-        with the SDR base tone-mapped and a one-pass gain map."""
+        """encodeJPEGR API-0 (jpegr.cpp:173-200): HDR intent (P010,
+        RGBA1010102, RGBAF16 or YUV444_10) in, JPEG_R out, with the SDR base
+        tone-mapped and a one-pass gain map."""
         fmt = ImgFmt(hdr.fmt)
         if fmt not in HDR_INPUT_FORMATS:
             raise invalid_param(f"unsupported hdr intent color format {fmt}")
-        if fmt != ImgFmt.P010:
-            raise unsupported(
-                f"API-0 encode of {fmt.name} is not ported yet "
-                "(ROADMAP.md, Queue 1: the other encode formats and APIs)")
-        return encode_api0_p010_fused(self, hdr, quality, exif)
+        if fmt == ImgFmt.P010:
+            return fused.encode_api0_p010_fused(self, hdr, quality, exif)
+        if fmt in (ImgFmt.RGBA1010102, ImgFmt.RGBAF16):
+            return fused.encode_api0_rgb_fused(self, hdr, quality, exif)
+        return fused.encode_api0_yuv444_10_fused(self, hdr, quality, exif)
 
     # ------------------------------------------------------------------
     # decode

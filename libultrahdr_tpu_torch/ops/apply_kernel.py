@@ -31,12 +31,11 @@ and PQ, or (H, W, 4) int16 holding RGBA half-float u16 patterns for LINEAR
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
 
-from .._buildlib import PKG_DIR, build_cuda, check_launch
+from .._buildlib import CudaLibrary, check_launch
 from ..errors import unsupported
 from ..types import ColorGamut, ColorTransfer
 from . import colors, pixel
@@ -132,33 +131,18 @@ class _ApplyParams(ctypes.Structure):
                 ("use_base_cg", ctypes.c_int)]
 
 
-class _ApplyKernel:
-    """Wrapper of csrc/apply_kernel.cu: build at first use, launch, launch
-    count."""
+APPLY_LIB = CudaLibrary("apply_kernel", {
+    "uhdr_apply_gainmap": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(_ApplyParams), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]})
 
-    SOURCE = PKG_DIR / "csrc" / "apply_kernel.cu"
+
+class _ApplyKernel:
+    """Wrapper of csrc/apply_kernel.cu: launch, launch count."""
 
     def __init__(self):
         self.launches = 0
-        self.build_seconds: float | None = None
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def build(self):
-        """Compile (or load the cached) kernel library; returns it."""
-        with self._lock:
-            if self._lib is None:
-                lib, self.build_log, self.build_seconds = build_cuda(
-                    "apply_kernel", self.SOURCE)
-                lib.uhdr_apply_gainmap.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                    ctypes.c_int, ctypes.c_int,
-                    ctypes.POINTER(_ApplyParams), ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p]
-                lib.uhdr_apply_gainmap.restype = ctypes.c_int
-                self._lib = lib
-        return self._lib
 
     def __call__(self, sdr_yuv: torch.Tensor, gain: torch.Tensor, meta_rows,
                  weight: float, *, out_ct: ColorTransfer, sdr_cg: ColorGamut,
@@ -198,7 +182,7 @@ class _ApplyKernel:
             out = torch.empty((h, w, 4), dtype=torch.int16, device=dev)
         else:
             out = torch.empty((h, w), dtype=torch.int32, device=dev)
-        lib = self.build()
+        lib = APPLY_LIB.build()
         check_launch(lib, lib.uhdr_apply_gainmap(
             sdr_yuv.data_ptr(), gain.data_ptr(), h * w if chans == 3 else 0,
             h, w, ctypes.byref(params), int(out_ct), out.data_ptr(),

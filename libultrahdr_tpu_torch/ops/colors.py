@@ -2,7 +2,7 @@
 
 Port of the parts of ``libultrahdr_tpu/ops/colors.py`` that the API-0 encode
 and the fused decode run: transfer functions, gamut and YUV matrices,
-luminance, clamps.  Channels lie on
+luminance, clamps, the HDR float sanitizer.  Channels lie on
 the leading axis, shape (3, ...); the 3x3 conversions are unrolled float32
 multiply-adds in the same order as the JAX package.  The matrices are the
 reference's rounded values (gainmapmath.cpp:603-674), copied unchanged.
@@ -98,6 +98,13 @@ def rgb_to_yuv(rgb: torch.Tensor, matrix) -> torch.Tensor:
 def yuv_to_rgb(yuv: torch.Tensor, matrix) -> torch.Tensor:
     """YUV->RGB, clamped to [0,1] like the reference (clampPixelFloat)."""
     return torch.clamp(apply_3x3(matrix, yuv), 0.0, 1.0)
+
+
+def rgb2yuv_matrix_for_gamut(cg) -> np.ndarray:
+    """The RGB->YUV matrix of a gamut (Display-P3 with BT.601 luma)."""
+    return {ColorGamut.BT709: SRGB_RGB2YUV,
+            ColorGamut.DISPLAY_P3: P3_RGB2YUV,
+            ColorGamut.BT2100: BT2100_RGB2YUV}[ColorGamut(cg)]
 
 
 def yuv2rgb_matrix_for_gamut(cg) -> np.ndarray:
@@ -248,4 +255,12 @@ def clamp_pixel_float(x: torch.Tensor) -> torch.Tensor:
 
 
 def clamp_pixel_float_linear(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, MAX_PIXEL_FLOAT_HDR_LINEAR)
+
+
+def sanitize_pixel(x: torch.Tensor) -> torch.Tensor:
+    """sanitizePixel (gainmapmath.h:585-590): nan->0, +inf->max, -inf->0,
+    finite clamped to [0, 10000/203]."""
+    x = torch.nan_to_num(x.to(torch.float32), nan=0.0,
+                         posinf=MAX_PIXEL_FLOAT_HDR_LINEAR, neginf=0.0)
     return torch.clamp(x, 0.0, MAX_PIXEL_FLOAT_HDR_LINEAR)

@@ -1,11 +1,12 @@
 """Pixel format unpack/pack: raw integer planes <-> planar float32 (3, H, W).
 
-Port of the parts of ``libultrahdr_tpu/ops/pixel.py`` that the API-0 P010
-encode and the fused decode run.  Packed outputs keep the JAX package's
-layouts in torch's signed carriers: RGBA1010102 is an (H, W) int32 tensor
-holding the u32 bit patterns (the 0x3 << 30 alpha sets bit 31, so every
-value is negative as int32), RGBAF16 an (H, W, 4) int16 tensor holding the
-u16 half-float patterns; the host views them as np.uint32 / np.uint16.
+Port of the parts of ``libultrahdr_tpu/ops/pixel.py`` that the API-0 encode
+and the fused decode run.  Packed images keep the JAX package's layouts in
+torch's signed carriers: RGBA1010102 and RGBA8888 are (H, W) int32 tensors
+holding the u32 bit patterns (an opaque alpha sets bit 31, so every value is
+negative as int32), RGBAF16 an (H, W, 4) int16 tensor holding the u16
+half-float patterns, 16-bit sample planes (P010, YUV444_10) int16 tensors
+holding the u16 samples; the host views them as np.uint32 / np.uint16.
 Subsampled chroma is unpacked to full resolution by replication, numerically
 identical to the reference's getYuv420Pixel-style nearest indexing
 (gainmapmath.cpp:354-448), so the tone map and the gain map see one uniform
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..types import ColorRange
+from .colors import sanitize_pixel
 
 
 def _replicate_chroma(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
@@ -61,6 +63,47 @@ def unpack_p010(y: torch.Tensor, uv: torch.Tensor, rng: ColorRange, h: int,
     return torch.stack([yf[:h, :w], uf, vf])
 
 
+def _u16(p: torch.Tensor) -> torch.Tensor:
+    """16-bit sample pattern of any integer carrier (int16 views included),
+    as float32."""
+    return (p.to(torch.int32) & 0xFFFF).to(torch.float32)
+
+
+def unpack_yuv444_10(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     rng: ColorRange) -> torch.Tensor:
+    """30bpp YCbCr444 (three planes of 10-bit samples in the low bits) ->
+    (3,H,W) float (gainmapmath.cpp:398-423)."""
+    yf, uf, vf = _u16(y), _u16(u), _u16(v)
+    if ColorRange(rng) == ColorRange.FULL:
+        return torch.stack([yf / 1023.0, uf / 1023.0 - 0.5,
+                            vf / 1023.0 - 0.5])
+    return torch.stack([(yf - 64.0) * (1.0 / 876.0),
+                        (uf - 64.0) * (1.0 / 896.0) - 0.5,
+                        (vf - 64.0) * (1.0 / 896.0) - 0.5])
+
+
+def unpack_rgba8888(packed: torch.Tensor) -> torch.Tensor:
+    """(H,W) int32 u32 patterns -> (3,H,W) float in [0,1]
+    (gainmapmath.cpp:462-472).  R bits 7:0, G 15:8, B 23:16."""
+    return torch.stack([((packed >> s) & 0xFF).to(torch.float32)
+                        for s in (0, 8, 16)]) / 255.0
+
+
+def unpack_rgba1010102(packed: torch.Tensor) -> torch.Tensor:
+    """(H,W) int32 u32 patterns -> (3,H,W) float in [0,1]
+    (gainmapmath.cpp:474-484).  R bits 9:0, G 19:10, B 29:20."""
+    return torch.stack([((packed >> s) & 0x3FF).to(torch.float32)
+                        for s in (0, 10, 20)]) / 1023.0
+
+
+def unpack_rgbaf16(comp: torch.Tensor) -> torch.Tensor:
+    """(H,W,4) int16 [r,g,b,a] half-float patterns -> (3,H,W) float32,
+    sanitized (getRgbaF16Pixel, gainmapmath.cpp:486-495): the bitcast is
+    the reference's halfToFloat for every finite, inf and nan input."""
+    rgb = comp.view(torch.float16)[..., :3].permute(2, 0, 1)
+    return sanitize_pixel(rgb.to(torch.float32))
+
+
 def _scale_u8(x: torch.Tensor) -> torch.Tensor:
     """ScaleTo8Bit (jpegr.cpp:1848-1852): round-half-up then clamp to
     [0,255]."""
@@ -79,6 +122,27 @@ def pack_yuv420(yuv: torch.Tensor):
     u = u.reshape(h2 // 2, 2, w2 // 2, 2).mean(dim=(1, 3))
     v = v.reshape(h2 // 2, 2, w2 // 2, 2).mean(dim=(1, 3))
     return y, _scale_u8(u), _scale_u8(v)
+
+
+def pack_yuv444(yuv: torch.Tensor):
+    """(3,H,W) gamma YUV (chroma centered at 0) -> 3 uint8 planes: toneMap's
+    444 store, chroma += 0.5, then putYuv444Pixel's *255 +0.5 truncate-clamp
+    (jpegr.cpp:2047-2052, gainmapmath.cpp:578-600)."""
+    y = torch.clamp(yuv[0] * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    u = torch.clamp((yuv[1] + 0.5) * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    v = torch.clamp((yuv[2] + 0.5) * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    return y, u, v
+
+
+# 255 << 24, the opaque alpha of RGBA8888, as an int32 pattern
+_ALPHA_8888 = -(1 << 24)
+
+
+def pack_rgba8888(rgb: torch.Tensor) -> torch.Tensor:
+    """(3,H,W) float [0,1] -> (H,W) int32 u32 patterns, alpha 255
+    (putRgba8888Pixel, gainmapmath.cpp:540-554: *255 +0.5 truncate)."""
+    q = torch.clamp(rgb * 255.0 + 0.5, 0.0, 255.0).to(torch.int32)
+    return q[0] | (q[1] << 8) | (q[2] << 16) | _ALPHA_8888
 
 
 # 0x3 << 30, the opaque 2-bit alpha of RGBA1010102, as an int32 pattern

@@ -1,6 +1,6 @@
 """HDR -> SDR global tone mapping over whole planes.
 
-Port of the parts of ``libultrahdr_tpu/ops/tonemap.py`` that the API-0 P010
+Port of the parts of ``libultrahdr_tpu/ops/tonemap.py`` that the API-0
 encode runs, after JpegR::toneMap and globalTonemap/ReinhardMap
 (jpegr.cpp:1813-2090):
 
@@ -61,10 +61,19 @@ def tonemap_core(hdr_vals: torch.Tensor, fmt: ImgFmt, cg: ColorGamut,
 
 
 def tonemap_to_yuv(hdr_vals: torch.Tensor, fmt: ImgFmt, cg: ColorGamut,
-                   ct: ColorTransfer):
-    """Tonemap P010 input to YUV420 SDR planes (2x2 chroma average,
-    jpegr.cpp:2044-2070).  The JAX package's 4:4:4 output for YUV444_10
-    input comes with the other encode formats (ROADMAP Queue 1)."""
+                   ct: ColorTransfer, out_yuv420: bool = True):
+    """Tonemap to packed SDR planes: P010 input to YUV420 (2x2 chroma
+    average, jpegr.cpp:2044-2070), YUV444_10 input to YUV444
+    (out_yuv420=False)."""
     sdr_rgb_gamma = tonemap_core(hdr_vals, fmt, cg, ct)
     sdr_yuv = colors.rgb_to_yuv(sdr_rgb_gamma, colors.P3_RGB2YUV)
-    return pixel.pack_yuv420(sdr_yuv)
+    if out_yuv420:
+        return pixel.pack_yuv420(sdr_yuv)
+    return pixel.pack_yuv444(sdr_yuv)
+
+
+def tonemap_to_rgba8888(hdr_vals: torch.Tensor, fmt: ImgFmt, cg: ColorGamut,
+                        ct: ColorTransfer) -> torch.Tensor:
+    """Tonemap RGB-format HDR input to a packed RGBA8888 SDR
+    (jpegr.cpp:2040-2042): (H, W) int32 u32 patterns."""
+    return pixel.pack_rgba8888(tonemap_core(hdr_vals, fmt, cg, ct))

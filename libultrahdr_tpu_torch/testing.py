@@ -1,13 +1,17 @@
-"""Test content and output checks for the port, numpy and host only.
+"""Test content and output checks for the port.
 
 - ``photo_p010``: the numpy twin of ``benchmarks.photo_p010`` (which imports
   the JAX package), tiles of the committed photograph
   ``tests/data/photo_yu12_320x240.npz`` with per-tile exposure and a smooth
-  HDR highlight field;
+  HDR highlight field; ``photo_rgba1010102`` and ``photo_rgbaf16``, the twins
+  of ``benchmarks._p010_to_rgba1010102`` / ``_p010_to_rgbaf16`` applied to
+  it, and ``photo_yuv444_10``, the same samples as three 10-bit planes;
 - ``read_jpegr``: split a JPEG_R file through its MPF index and read the
   gain map's ISO 21496-1 metadata;
 - ``decode_scan_coeffs``: decode one JPEG's scan back to its quantised
   coefficients with the shared native decoder;
+- ``pack_scans_v1`` / ``pack_scans_v2``: the block-pack and tile-pack
+  routes (slots -> kernel -> compaction), which no request runs;
 - ``check_decoded_close``: the contract between two decodes of one file
   (RGBA1010102 or RGBAF16 output) by different programs or devices.
 """
@@ -18,12 +22,13 @@ import functools
 import struct
 
 import numpy as np
+import torch
 
 from ._buildlib import PKG_DIR
 from .container import iso21496, mpf
 from .container.jpegr_container import ISO_NS
-from .jpeg import native
-from .jpeg.device_entropy import ScanLayout
+from .jpeg import native, pack_kernel
+from .jpeg.device_entropy import ScanLayout, _default_budget
 from .jpeg.tables import AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA
 from .types import (ColorGamut, ColorRange, ColorTransfer, GainMapMetadata,
                     ImgFmt, RawImage)
@@ -69,6 +74,48 @@ def photo_p010(w: int, h: int, seed: int = 11) -> RawImage:
     return RawImage(ImgFmt.P010, ColorGamut.BT2100, ColorTransfer.HLG,
                     ColorRange.FULL, w, h,
                     [np.ascontiguousarray(y10), np.ascontiguousarray(uv)])
+
+
+def _photo_samples(w: int, h: int, seed: int):
+    """(y, u, v) 10-bit samples of photo_p010 at full resolution, chroma
+    replicated; an odd size crops the next even size's image."""
+    img = photo_p010(w + w % 2, h + h % 2, seed)
+    uv = img.planes[1] >> 6
+
+    def full(c):
+        return np.repeat(np.repeat(c, 2, axis=0), 2, axis=1)[:h, :w]
+    return (img.planes[0][:h, :w] >> 6), full(uv[:, 0::2]), full(uv[:, 1::2])
+
+
+def photo_rgba1010102(w: int, h: int, seed: int = 11) -> RawImage:
+    """photo_p010's samples repacked as BT2100 HLG RGBA1010102 (R = Y,
+    G = Cb, B = Cr; the same pixel entropy, not a colour conversion), plane
+    for plane ``benchmarks._p010_to_rgba1010102(photo_p010(w, h, seed))``."""
+    y, u, v = (c.astype(np.uint32) for c in _photo_samples(w, h, seed))
+    packed = y | (u << 10) | (v << 20) | np.uint32(0x3 << 30)
+    return RawImage(ImgFmt.RGBA1010102, ColorGamut.BT2100, ColorTransfer.HLG,
+                    ColorRange.FULL, w, h, [np.ascontiguousarray(packed)])
+
+
+def photo_rgbaf16(w: int, h: int, seed: int = 11) -> RawImage:
+    """photo_p010's samples / 1023 as BT2100 LINEAR RGBAF16 half-float bit
+    patterns (u16), plane for plane
+    ``benchmarks._p010_to_rgbaf16(photo_p010(w, h, seed))``."""
+    comp = np.empty((h, w, 4), np.float16)
+    for i, c in enumerate(_photo_samples(w, h, seed)):
+        comp[..., i] = (c.astype(np.float32) / 1023.0).astype(np.float16)
+    comp[..., 3] = np.float16(1.0)
+    return RawImage(ImgFmt.RGBAF16, ColorGamut.BT2100, ColorTransfer.LINEAR,
+                    ColorRange.FULL, w, h,
+                    [np.ascontiguousarray(comp).view(np.uint16)])
+
+
+def photo_yuv444_10(w: int, h: int, seed: int = 11) -> RawImage:
+    """photo_p010's samples as BT2100 HLG YUV444_10: three u16 planes of
+    10-bit samples, chroma replicated."""
+    planes = [np.ascontiguousarray(c) for c in _photo_samples(w, h, seed)]
+    return RawImage(ImgFmt.YUV444_10, ColorGamut.BT2100, ColorTransfer.HLG,
+                    ColorRange.FULL, w, h, planes)
 
 
 def coefficient_planes(layout: ScanLayout, seed: int) -> list[np.ndarray]:
@@ -171,6 +218,40 @@ def decode_scan_coeffs(jpeg: bytes, layout: ScanLayout) -> list[np.ndarray]:
         [DC_LUMA, DC_CHROMA, None, None], [AC_LUMA, AC_CHROMA, None, None],
         restart_interval=layout.mcus_w)
     return coeffs
+
+
+def scans_slots(scans):
+    """Slots of several scans [(coeff_planes, layout), ...] for the block
+    pack and the tile pack, concatenated in order."""
+    pays, lens = zip(*(pack_kernel.slots_for_kernel(c, lay)
+                       for c, lay in scans))
+    return torch.cat(pays), torch.cat(lens)
+
+
+def pack_scans_v1(scans):
+    """The block-pack route for several scans in one launch: slots ->
+    pack_blocks -> compact_blocks_t.  Returns (words (total,) int32, blen
+    (n,) int32 with the row pads); split and join them per scan with
+    fused.fetch_blocks_multi.  No request runs it: it drives the ported
+    ``pack_blocks_pallas`` end to end for the tests and chip_smoke."""
+    bb_t, blen = pack_kernel.pack_blocks(*scans_slots(scans))
+    total = int(((blen.to(torch.int64) + 31) >> 5).sum())
+    return pack_kernel.compact_blocks_t(bb_t, blen, total), blen
+
+
+def pack_scans_v2(scans, budget: int | None = None):
+    """The tile-pack route for several scans in one launch: slots ->
+    pack_tiles -> tile_live_words -> stitch_tiles, budget words per block
+    (default device_entropy._default_budget).  Returns (words, blen) as
+    pack_scans_v1; raises PackOverflowError when a tile overflowed its
+    budget.  No request runs it (see pack_scans_v1)."""
+    pays, lens = scans_slots(scans)
+    if budget is None:
+        budget = _default_budget(pays.shape[0])
+    tiles, blen = pack_kernel.pack_tiles(pays, lens, budget)
+    pack_kernel.check_tile_budgets(blen.cpu().numpy(), budget)
+    return pack_kernel.stitch_tiles(
+        [(tiles, pack_kernel.tile_live_words(blen))]), blen
 
 
 def host_packed(packed) -> np.ndarray:

@@ -2,6 +2,7 @@
 """Stage profile of the port's 4K JPEG_R decode on one NVIDIA GPU.
 
     python3 profile_decode.py [--out DIR]
+    python3 profile_decode.py --first-decode {encode,routes,routes+empty_cache}
 
 Encodes ``testing.photo_p010(3840, 2160)`` with ``UhdrEncoder(device="cuda")``
 in the two configurations of ``chip_smoke.py`` (benchmark: map scale 4,
@@ -22,7 +23,16 @@ in the two configurations of ``chip_smoke.py`` (benchmark: map scale 4,
 
 Prints a line per measurement with the card's name and power limit
 (nvidia-smi) and writes DIR/decode_profile.json and the traces
-DIR/decode_trace_<config>.json.  Imports nothing of JAX.
+DIR/decode_trace_<config>.json.
+
+``--first-decode AFTER`` measures only the first decodes of the process,
+each split at the stage boundaries as in 2.: the first benchmark HLG decode
+after the encodes alone (``encode``), or after the block-pack and tile-pack
+routes and their plain versions have packed both 4K files' scans
+(``routes``, as chip_smoke ran them before its decode), or after those and
+``torch.cuda.empty_cache()`` (``routes+empty_cache``); then three more
+decodes.  It prints the caching allocator's reserved bytes beside each and
+writes DIR/decode_first_<AFTER>.json.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ sys.path.insert(0, str(HERE))
 import libultrahdr_tpu_torch as port  # noqa: E402
 from libultrahdr_tpu_torch import fused, jpegr, testing  # noqa: E402
 from libultrahdr_tpu_torch.jpeg.dct import inverse_plane  # noqa: E402
+from libultrahdr_tpu_torch.jpeg import device_entropy  # noqa: E402
+from libultrahdr_tpu_torch.jpeg import pack_kernel as pk  # noqa: E402
 from libultrahdr_tpu_torch.jpeg.decoder import _ycc_to_rgb  # noqa: E402
 from libultrahdr_tpu_torch.ops import apply as apply_ops  # noqa: E402
 from libultrahdr_tpu_torch.ops import apply_kernel as ak  # noqa: E402
@@ -153,10 +165,60 @@ def busy_share(trace_path: pathlib.Path):
     return busy, counts, sorted(top.items(), key=lambda x: -x[1])[:8]
 
 
+def route_load(img, dev: torch.device):
+    """The block-pack and tile-pack routes and their plain versions on the
+    4K P010 scans of both configurations, as chip_smoke's route phase runs
+    them; returns what it keeps alive."""
+    kept = []
+    for scale, multichannel in CONFIGS.values():
+        scans = fused._api0_p010_block_buffers(
+            *fused.upload_p010(img, dev), cg=port.ColorGamut.BT2100,
+            ct=port.ColorTransfer.HLG, rng=port.ColorRange.FULL, scale=scale,
+            multichannel=multichannel, gamma=1.0, quality=95, map_quality=95,
+            use_base_cg=False)
+        pays, lens = testing.scans_slots(scans)
+        budget = device_entropy._default_budget(pays.shape[0])
+        kept += [scans, testing.pack_scans_v1(scans),
+                 testing.pack_scans_v2(scans)]
+        for _ in range(6):
+            pk.pack_blocks_plain(pays, lens)
+            pk.pack_tiles_plain(pays, lens, budget)
+            pk.pack_blocks(pays, lens)
+            pk.pack_tiles(pays, lens, budget)
+    torch.cuda.synchronize()
+    return kept
+
+
+def first_decodes(after: str, img, files, dev, card, out_dir):
+    """The process's first decodes, split by stage, after `after`."""
+    kept = route_load(img, dev) if after.startswith("routes") else []
+    if after.endswith("empty_cache"):
+        torch.cuda.empty_cache()
+    runs = []
+    for i in range(4):
+        reserved = torch.cuda.memory_reserved(dev)
+        ms, _, _ = staged(files["benchmark"], "HLG", dev)
+        runs.append(dict(stages=ms, total=sum(ms.values()),
+                         reserved=reserved))
+        print(f"first-decode after {after}, decode {i} (benchmark HLG): "
+              f"total {sum(ms.values()):.2f} ms | "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+              + f" | reserved before it {reserved / 2**30:.2f} GiB | {card}",
+              flush=True)
+    del kept
+    (out_dir / f"decode_first_{after}.json").write_text(json.dumps(
+        dict(card=card, after=after, runs=runs), indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_out",
                     help="directory for the JSON summary and the traces")
+    ap.add_argument("--first-decode", metavar="AFTER",
+                    choices=("encode", "routes", "routes+empty_cache"),
+                    help="measure only the process's first decodes after "
+                    "AFTER")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: CUDA is not available")
@@ -178,6 +240,9 @@ def main() -> int:
         enc.set_gainmap_scale_factor(scale)
         enc.set_using_multi_channel_gainmap(multichannel)
         files[cfg] = enc.encode()
+    if args.first_decode:
+        return first_decodes(args.first_decode, img, files, dev, card,
+                             out_dir)
     result = {"card": card, "requests": {}, "stages": {}, "busy": {}}
 
     for cfg, data in files.items():

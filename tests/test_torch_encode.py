@@ -186,10 +186,16 @@ def test_encoder_lifecycle_and_validation():
 
 
 def test_other_hdr_formats_raise_unsupported():
-    rgba = port.RawImage(port.ImgFmt.RGBA1010102, port.ColorGamut.BT2100,
-                         port.ColorTransfer.HLG, port.ColorRange.FULL, 16, 16,
-                         [np.zeros((16, 16), np.uint32)])
+    """Every API-0 HDR format is ported now; what is not is an SDR intent
+    beside the HDR one (API-1/2): it raises unsupported naming ROADMAP."""
+    rgba = testing.photo_rgba1010102(16, 16)
+    enc = port.UhdrEncoder(device="cpu")
+    enc.set_raw_image(rgba, port.ImgLabel.HDR)
+    sdr = port.RawImage(port.ImgFmt.RGBA8888, port.ColorGamut.DISPLAY_P3,
+                        port.ColorTransfer.SRGB, port.ColorRange.FULL, 16, 16,
+                        [np.zeros((16, 16), np.uint32)])
     with pytest.raises(port.UhdrError) as e:
-        port.JpegR(device="cpu").encode_api0(rgba)
+        enc.set_raw_image(sdr, port.ImgLabel.SDR)
     assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
     assert "ROADMAP" in str(e.value)
+    testing.read_jpegr(enc.encode())

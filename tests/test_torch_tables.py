@@ -215,20 +215,18 @@ def test_no_jax_import_in_port_sources():
 
 
 def test_cuda_request_without_gpu_raises(monkeypatch):
-    """An explicit CUDA device with no usable GPU raises; nothing falls back
-    to the CPU."""
+    """A CUDA device with no usable GPU raises, whether asked for or the
+    default (the entry points run on the card unless the caller asks for the
+    CPU); nothing falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: port.JpegR(device="cuda"),
                  lambda: port.UhdrEncoder(device="cuda"),
                  lambda: port.UhdrEncoder(device="cuda:0"),
-                 lambda: port.UhdrDecoder(device="cuda")):
+                 lambda: port.UhdrDecoder(device="cuda"),
+                 port.JpegR, port.UhdrEncoder, port.UhdrDecoder):
         with pytest.raises(port.UhdrError) as e:
             make()
         assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-    with pytest.raises(TypeError):
-        port.UhdrEncoder()          # the device is never looked up
-    with pytest.raises(TypeError):
-        port.UhdrDecoder()
     with pytest.raises(port.UhdrError):
         port_api.UhdrEncoder(device="meta")
 

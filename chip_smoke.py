@@ -6,7 +6,9 @@
 Drives the port's paths at 3840x2160: the API-0 encode of P010,
 RGBA1010102 and RGBAF16 input through
 ``libultrahdr_tpu_torch.UhdrEncoder(device="cuda")`` and of YUV444_10 input
-through ``JpegR(device="cuda").encode_api0``, the JPEG_R decode of
+through ``JpegR(device="cuda").encode_api0``, the API-1 encode (raw HDR +
+raw SDR, both presets) and one API-2, API-3 and API-4 encode through
+``UhdrEncoder``, the JPEG_R decode of
 the P010 files through ``UhdrDecoder(device="cuda")``, then the slot-input
 block-pack and tile-pack routes on the encode's scans, in phases that each
 print lines and let any failure propagate (exit code != 0).  Every path is
@@ -16,7 +18,7 @@ after:
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the three CUDA kernel libraries (csrc/pack_kernel.cu,
    csrc/block_pack_kernel.cu and csrc/apply_kernel.cu, nvcc, sm_90a) and the
-   shared host C++ from the checkout's sources, all four compilers started
+   host C++ (csrc/host/) from the checkout's sources, all four compilers started
    together; print each library's ptxas lines;
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
@@ -47,6 +49,21 @@ after:
    encode.  Prints each request's ms and MP/s and the pack kernel's (alone
    and through its wrapper) and its plain version's time at the 4K shapes
    (CUDA events) beside its bound;
+4b. API-1 through ``UhdrEncoder``: the P010 HDR of phase 4 with
+   ``JpegR(device="cuda").tone_map`` of it as the SDR (YUV420, Display-P3),
+   REALTIME and BEST_QUALITY (the two-pass gain map) in both
+   configurations, a warm-up and two requests each, and one RGBA1010102 HDR
+   + RGBA8888 SDR request per preset (default configuration), each
+   launching the pack kernel exactly once and checked as in phase 4 (ISO
+   boosts against the card's own bounds); then one API-2, API-3 and API-4
+   request built from the default BEST_QUALITY file's parts (its base as
+   the compressed SDR, its gain map and metadata), launching no kernel:
+   the primary image equals the compressed SDR, API-4's gain map its
+   input, API-2/3's gain-map JPEG the general path's on the card, API-3's
+   SDR planes decoded on the card those on the CPU.  Small images: API-1's
+   base planes (a BT.709 SDR re-encoded as BT.601) and gain maps on the
+   card against the CPU port, both presets and configurations.  Prints
+   each request's ms and MP/s;
 5. decodes the benchmark and the default file of phase 4 to HLG, PQ
    (RGBA1010102) and LINEAR (RGBAF16), each checked: the request launched
    the apply kernel exactly once, and its output is bit-identical to the
@@ -215,6 +232,7 @@ def main() -> int:
                          f"not from this checkout ({HERE})")
     from libultrahdr_tpu_torch import fused, jpegr, testing
     from libultrahdr_tpu_torch.jpeg import dct, device_entropy, native
+    from libultrahdr_tpu_torch.jpeg import decoder as jpeg_decoder
     from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
     from libultrahdr_tpu_torch.ops import apply as apply_ops
     from libultrahdr_tpu_torch.ops import apply_kernel as ak
@@ -619,6 +637,217 @@ def main() -> int:
         "the SDR and gain-map samples, P010, RGB and YUV444_10, both "
         "configurations")
 
+    # ---- phase 4b: the API-1..4 encodes ----------------------------------
+    # API-1 takes the P010 HDR of phase 4 with the port's own tone map of
+    # it as the SDR intent (YUV420, Display-P3), as the JAX package's API-1
+    # benchmark row makes its input; and once per preset RGBA1010102 HDR
+    # with its RGBA8888 tone map
+    presets = {"REALTIME": port.EncPreset.REALTIME,
+               "BEST_QUALITY": port.EncPreset.BEST_QUALITY}
+    sdr_img = port.JpegR(device="cuda").tone_map(img)
+    rgb_hdr = rgb_imgs["RGBA1010102 HLG"][0]
+    rgb_sdr = port.JpegR(device="cuda").tone_map(rgb_hdr)
+    if (Fmt(sdr_img.fmt), Fmt(rgb_sdr.fmt)) != (Fmt.YUV420, Fmt.RGBA8888):
+        raise AssertionError("tone_map did not give YUV420 / RGBA8888 SDR")
+
+    def knob_jr(kw, preset):
+        return port.JpegR(device="cuda", map_dimension_scale_factor=kw[
+            "scale"], use_multi_channel_gainmap=kw["multichannel"],
+            preset=preset)
+
+    def request(what: str, configure, launches: int) -> tuple[bytes, float]:
+        """One UhdrEncoder request on the card, configured by `configure`;
+        it must launch the pack kernel `launches` times."""
+        before = pk.PACK_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = port.UhdrEncoder(device="cuda")
+        configure(enc)
+        data = enc.encode()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if pk.PACK_KERNEL.launches != before + launches:
+            raise AssertionError(f"{what} launched the pack kernel "
+                                 f"{pk.PACK_KERNEL.launches - before} "
+                                 f"times, not {launches}")
+        log(f"phase 4b {what}: {ms:.1f} ms, {w * h / ms / 1e3:.2f} MP/s, "
+            f"{len(data)} bytes | {card}")
+        return data, ms
+
+    def api1(hdr_i, sdr_i, kw, preset):
+        def configure(enc):
+            enc.set_raw_image(hdr_i, port.ImgLabel.HDR)
+            enc.set_raw_image(sdr_i, port.ImgLabel.SDR)
+            enc.set_quality(95, port.ImgLabel.BASE)
+            enc.set_preset(preset)
+            enc.set_gainmap_scale_factor(kw["scale"])
+            enc.set_using_multi_channel_gainmap(kw["multichannel"])
+        return configure
+
+    api1_out, api1_ms = {}, {}
+    zero_counts()
+    for pname, preset in presets.items():
+        for cfg, kw in configs.items():
+            request(f"API-1 P010+YUV420 {pname} {cfg} warm-up",
+                    api1(img, sdr_img, kw, preset), 1)
+            outs = [request(f"API-1 P010+YUV420 {pname} {cfg} request "
+                            f"{req}", api1(img, sdr_img, kw, preset), 1)
+                    for req in range(2)]
+            api1_out[pname, cfg, "P010+YUV420"] = [d for d, _ in outs]
+            api1_ms[pname, cfg] = [ms for _, ms in outs]
+        api1_out[pname, "default", "RGBA1010102+RGBA8888"] = [request(
+            f"API-1 RGBA1010102+RGBA8888 {pname} default",
+            api1(rgb_hdr, rgb_sdr, configs["default"], preset), 1)[0]]
+    api1_launches = read_counts("API-1 encode", {"pack_scan": len(presets)
+                                                 * (3 * len(configs) + 1)})
+
+    def check_api1(data, hdr_i, sdr_i, kw, preset, what):
+        """The phase-4 checks of an API-1 file: container and ISO boosts
+        (the two-pass ones from the card's own bounds), scans that decode
+        to the device's coefficients, bytes equal to the plain-entropy
+        encode."""
+        primary, gm_jpeg, md = testing.read_jpegr(data)
+        scans, want_md, _, _ = fused.api1_scans(knob_jr(kw, preset), hdr_i,
+                                                sdr_i, 95)
+        for f in ("max_content_boost", "min_content_boost"):
+            if not np.allclose(getattr(md, f), getattr(want_md, f),
+                               rtol=1e-4):
+                raise AssertionError(f"{what}: ISO {f} {getattr(md, f)} != "
+                                     f"{getattr(want_md, f)}")
+        for jpeg, (coeffs, layout) in zip((primary, gm_jpeg), scans):
+            for g, c in zip(testing.decode_scan_coeffs(jpeg, layout),
+                            coeffs):
+                if not np.array_equal(g, c.cpu().numpy()):
+                    raise AssertionError(f"{what}: decoded scan != device "
+                                         "coefficients")
+        plain = fused.encode_api1_fused(knob_jr(kw, preset), hdr_i, sdr_i,
+                                        95, None, pack=pk.pack_scan_plain)
+        if plain != data:
+            raise AssertionError(f"{what}: kernel encode != plain-entropy "
+                                 "encode")
+        log(f"phase 4b checks {what}: container ok ({len(primary)} + "
+            f"{len(gm_jpeg)} bytes, ISO boosts {md.min_content_boost[0]:.4f}"
+            f"-{md.max_content_boost[0]:.4f}), coefficients round-trip "
+            f"exactly, bytes == plain-entropy encode | {card}")
+
+    for (pname, cfg, pair), datas in api1_out.items():
+        if any(d != datas[0] for d in datas):
+            raise AssertionError(f"API-1 {pair} {pname} {cfg}: requests "
+                                 "differ")
+        hdr_i, sdr_i = (img, sdr_img) if pair == "P010+YUV420" \
+            else (rgb_hdr, rgb_sdr)
+        check_api1(datas[0], hdr_i, sdr_i, configs[cfg], presets[pname],
+                   f"API-1 {pair} {pname} {cfg}")
+
+    # API-2, 3 and 4 from the parts of the default BEST_QUALITY file: its
+    # base as the compressed SDR (APPn segments dropped, Display-P3 given),
+    # its gain map (with its ICC profile: the map's application space is
+    # the HDR's) and metadata for API-4.  Their gain maps go through the
+    # general path's host entropy coder: no pack launch
+    api1_file = api1_out["BEST_QUALITY", "default", "P010+YUV420"][0]
+    primary, gm_jpeg, api1_md = testing.read_jpegr(api1_file)
+    sdr_jpeg = testing.without_app_segments(primary)
+    gm_in = testing.without_app_segments(gm_jpeg, keep_icc=True)
+    comp = port.CompressedImage(sdr_jpeg, CG.DISPLAY_P3)
+
+    def api2(enc):
+        enc.set_raw_image(img, port.ImgLabel.HDR)
+        enc.set_raw_image(sdr_img, port.ImgLabel.SDR)
+        enc.set_compressed_image(comp, port.ImgLabel.SDR)
+
+    def api3(enc):
+        enc.set_raw_image(img, port.ImgLabel.HDR)
+        enc.set_compressed_image(comp, port.ImgLabel.SDR)
+
+    def api4(enc):
+        enc.set_compressed_image(comp, port.ImgLabel.BASE)
+        enc.set_gainmap_image(port.CompressedImage(gm_in), api1_md)
+
+    zero_counts()
+    compressed_out = {name: request(f"{name} (default configuration, "
+                                    "BEST_QUALITY)", configure, 0)[0]
+                      for name, configure in (("API-2", api2),
+                                              ("API-3", api3),
+                                              ("API-4", api4))}
+    compressed_launches = read_counts("API-2/3/4 encode", {})
+    jr_d = port.JpegR(device="cuda")
+    for api, data in compressed_out.items():
+        out_primary, out_gm, md = testing.read_jpegr(data)
+        if testing.without_app_segments(out_primary) != sdr_jpeg:
+            raise AssertionError(f"{api}: primary image != the compressed "
+                                 "SDR")
+        if api == "API-4":
+            if testing.without_app_segments(out_gm, keep_icc=True) != \
+                    gm_in or not \
+                    np.allclose(md.max_content_boost,
+                                api1_md.max_content_boost, rtol=1e-6):
+                raise AssertionError("API-4: gain map or metadata != input")
+            log(f"phase 4b checks API-4: primary and gain-map images "
+                f"byte-equal to the inputs, metadata kept | {card}")
+            continue
+        sdr_i = sdr_img
+        if api == "API-3":
+            planes, fmt = jpeg_decoder.decode_to_planes(sdr_jpeg, None, dev)
+            sdr_i = port.RawImage(fmt, CG.DISPLAY_P3, CT.SRGB,
+                                  port.ColorRange.FULL, w, h, planes)
+            on_cpu, _ = jpeg_decoder.decode_to_planes(
+                sdr_jpeg, None, torch.device("cpu"))
+            for p_card, p_cpu in zip(planes, on_cpu):
+                if not torch.equal(p_card.cpu(), p_cpu):
+                    raise AssertionError("API-3: SDR planes decoded on the "
+                                         "card != on the CPU")
+        gm_img, want_md = jr_d.generate_gainmap(
+            sdr_i, img, sdr_is_601=api == "API-3", use_luminance=True)
+        if testing.without_app_segments(out_gm) != \
+                testing.without_app_segments(jr_d.compress_gainmap(gm_img)):
+            raise AssertionError(f"{api}: gain-map JPEG != the general "
+                                 "path's on the card")
+        if not np.allclose(md.max_content_boost, want_md.max_content_boost,
+                           rtol=1e-4):
+            raise AssertionError(f"{api}: ISO boost {md.max_content_boost}"
+                                 f" != {want_md.max_content_boost}")
+        log(f"phase 4b checks {api}: primary image == the compressed SDR, "
+            f"gain-map JPEG == the general path's on the card, ISO boosts "
+            f"{md.min_content_boost[0]:.4f}-{md.max_content_boost[0]:.4f}"
+            + (", SDR planes decoded on the card == on the CPU"
+               if api == "API-3" else "") + f" | {card}")
+
+    # small images: API-1's base planes and gain map on the card against
+    # the port's CPU stages, both presets and configurations
+    small_hdr = testing.photo_p010(130, 66)
+    small_sdr = port.JpegR(device="cpu").tone_map(small_hdr)
+    small_sdr.cg = CG.BT709          # so that the YUV re-encoding is real
+    for (pname, preset), (cfg, kw) in itertools.product(presets.items(),
+                                                        configs.items()):
+        planes = {}
+        for d in ("cuda", "cpu"):
+            dv = torch.device(d)
+            hdr_v = pixel.unpack(small_hdr, dv)
+            sdr_v = pixel.unpack(small_sdr, dv)
+            base = fused._convert_yuv_encoding_planes(
+                fused.upload_planes(small_sdr.planes, dv), Fmt.YUV420,
+                CG.BT709, CG.DISPLAY_P3, small_hdr.h, small_hdr.w)
+            common = dict(sdr_fmt=Fmt.YUV420, hdr_fmt=Fmt.P010,
+                          sdr_cg=CG.BT709, hdr_cg=CG.BT2100, ct=CT.HLG,
+                          scale=kw["scale"], multichannel=kw["multichannel"],
+                          use_luminance=True, sdr_is_601=False,
+                          use_base_cg=False)
+            if preset == port.EncPreset.REALTIME:
+                gm = gainmap.generate_gainmap_onepass(
+                    sdr_v, hdr_v, gamma=1.0, max_boost=1000.0 / 203.0,
+                    **common)
+            else:
+                gains, gmin, gmax = gainmap.gainmap_float_pass(
+                    sdr_v, hdr_v, **common)
+                lo, hi = fused.api1_bounds(knob_jr(kw, preset), gmin, gmax)
+                gm = gainmap.encode_gainmap_twopass(gains, lo, hi, 1.0)
+            planes[d] = [p.cpu().numpy() for p in (*base, gm)]
+        for a, b in zip(planes["cuda"], planes["cpu"]):
+            close_u8(a, b, f"API-1 {pname} {cfg}", at_least=1)
+    log("phase 4b small images: API-1 base planes (BT.709 -> BT.601 YUV) "
+        "and gain maps on the card == CPU port within 1 LSB on <= 1e-3 of "
+        "the samples, both presets and configurations")
+
     # ---- phase 5: the decode path ----------------------------------------
     outs = (CT.HLG, CT.PQ, CT.LINEAR)
     fmt_of = {CT.HLG: Fmt.RGBA1010102, CT.PQ: Fmt.RGBA1010102,
@@ -832,7 +1061,9 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
-               p010_launches["pack_scan"] + rgb_launches["pack_scan"],
+               p010_launches["pack_scan"] + rgb_launches["pack_scan"]
+               + api1_launches["pack_scan"]
+               + compressed_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",

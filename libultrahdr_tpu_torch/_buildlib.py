@@ -1,7 +1,7 @@
 """Build-at-first-use for the port's native libraries.
 
-Both the shared host C++ (the restart-row joiner and the scan decoder, compiled
-by path from ``libultrahdr_tpu/jpeg/_native``) and the CUDA kernels under
+Both the host C++ (the restart-row joiner, the scan decoder and the scan
+encoder, the port's own copy under ``csrc/host/``) and the CUDA kernels under
 ``csrc/`` (each a ``CudaLibrary``, built through ``build_cuda``, one nvcc
 command line for all) are compiled on first use into ``libultrahdr_tpu_torch/_build/``,
 a directory that ``.gitignore`` lists.  Each library is keyed by a hash of its

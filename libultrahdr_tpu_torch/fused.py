@@ -1,6 +1,7 @@
-"""The fused single-device programs: the API-0 encodes and the decode.
+"""The fused single-device programs: the API-0 and API-1 encodes and the
+decode.
 
-Port of the API-0 encodes and the single-image decode of
+Port of the API-0 and API-1 encodes and the single-image decode of
 ``libultrahdr_tpu/fused.py``, with raw transfers (the vw/delta upload wires,
 the RGB channel wires, the coefficient wires and the download wire stay
 unported).
@@ -20,15 +21,30 @@ device, in eager PyTorch plus the hand-written pack kernel:
 5. Huffman symbols, bit packing and compaction of BOTH scans in one launch
                                         (jpeg/pack_kernel.pack_scan)
 
+**API-1** (the JAX ``_fused_api1`` and ``_fused_api1_gm``): raw HDR (P010,
+RGBA1010102, RGBAF16) and raw SDR (YUV420, RGBA8888) planes in.  The SDR
+is the base: its YUV encoding converted to Display-P3's BT.601
+(``_convert_yuv_encoding_planes``; an RGBA8888 SDR through its own gamut's
+YCbCr first), MCU-padded and transformed as in step 4; the gain map is
+made from the SDR and the HDR with the luminance metric.  REALTIME makes
+the one-pass map (step 3).  BEST_QUALITY (the library's default) makes
+the two-pass map: float gains and their per-channel min/max on the device,
+the 2C floats read to the host (the request's one synchronisation before
+the pack), the bounds resolved there (user boosts, the XMP channel merge),
+then the map quantised on the device.  Either way both scans go through
+ONE pack launch.  The JAX package packs the base before the bound
+resolution; the port resolves the bounds first so that one launch packs
+both scans; the bytes are the same.
+
 The host then downloads the words and block lengths once, joins each scan's
-restart rows (native.join_blocks, shared C++), writes the JPEG headers
+restart rows (native.join_blocks, host C++), writes the JPEG headers
 (jpeg/encoder.assemble_jpeg) and the MPF/ISO container
 (container/jpegr_container.append_gainmap).  Both JPEGs carry one restart
 interval per MCU row, as the JAX package's fused encode does.  The JAX
 package packs the two scans apart; the joined bytes are the same.
 
 **Decode** (the JAX ``_decode_device_core``): the host splits and parses the
-file and Huffman-decodes both scans (``decode_coefficients``, shared C++),
+file and Huffman-decodes both scans (``decode_coefficients``, host C++),
 uploads the raw int16 coefficient planes (``upload_coeff_planes``), and the
 device runs, in eager PyTorch plus the hand-written apply kernel:
 
@@ -52,39 +68,21 @@ from .container import icc as icc_mod
 from .container import jpegr_container
 from .jpeg import device_entropy, native, pack_kernel
 from .jpeg.dct import forward_plane, inverse_plane
-from .jpeg.decoder import (_validate, _ycc_to_rgb, get_output_sampling_format,
-                           require_qtable)
+from .jpeg.decoder import _ycc_to_rgb
+from .jpeg.decoder import decode_coefficients  # noqa: F401  (the decode's)
 from .jpeg.encoder import assemble_jpeg
+from .jpeg.encoder import pad_edge as _pad_edge
+from .jpeg.encoder import rgb_to_ycbcr as _rgb_to_ycbcr
 from .jpeg.tables import STD_CHROMA_QUANT, STD_LUMA_QUANT, scaled_quant_table
 from .ops import apply as apply_ops
 from .ops import colors, gainmap as gainmap_ops, pixel
 from .ops import tonemap as tonemap_ops
-from .types import (ColorGamut, ColorRange, ColorTransfer, GainMapMetadata,
-                    ImgFmt)
+from .types import (ColorGamut, ColorRange, ColorTransfer, EncPreset,
+                    GainMapMetadata, ImgFmt)
 
 _SAMPLING_420 = ((2, 2), (1, 1), (1, 1))
 _SAMPLING_444 = ((1, 1), (1, 1), (1, 1))
 _SAMPLING_400 = ((1, 1),)
-
-
-def _pad_edge(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """Edge-replicate pad of an (h, w) plane to (ph, pw), any dtype."""
-    h, w = p.shape
-    if h == ph and w == pw:
-        return p
-    rows = torch.arange(ph, device=p.device).clamp(max=h - 1)
-    cols = torch.arange(pw, device=p.device).clamp(max=w - 1)
-    return p.index_select(0, rows).index_select(1, cols)
-
-
-def _rgb_to_ycbcr(rgb_u8_chw: torch.Tensor):
-    """libjpeg full-range Rec.601 RGB->YCbCr (jccolor.c) on (3, H, W)."""
-    r, g, b = (rgb_u8_chw[i].to(torch.float32) for i in range(3))
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
-    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
-    return [torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
-            for p in (y, cb, cr)]
 
 
 def _layout_for(h: int, w: int, sampling) -> device_entropy.ScanLayout:
@@ -232,6 +230,106 @@ def fetch_blocks_multi(words: np.ndarray, parts) -> list[bytes]:
     return out
 
 
+def _convert_yuv_encoding_planes(planes, fmt: ImgFmt, src_cg: ColorGamut,
+                                 dst_cg: ColorGamut, h: int, w: int):
+    """convert_yuv_encoding (transformYuv420/444, gainmapmath.cpp:686-748)
+    on the device; the planes unchanged when the encodings match.  A
+    4:2:0 image's converted chroma is constant over each 2x2 quad (the
+    matrix rows for u', v' have no y term), so one sample a quad is taken."""
+    m = colors.yuv_encoding_conversion_matrix(src_cg, dst_cg)
+    if m is None:
+        return planes
+    sub = 2 if fmt == ImgFmt.YUV420 else 1
+    out = colors.apply_3x3(m, pixel.unpack_yuv8(*planes, sub, sub, h, w))
+    y = torch.clamp(out[0] * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    if fmt == ImgFmt.YUV420:
+        h2, w2 = (h // 2) * 2, (w // 2) * 2
+        u, v = out[1][:h2:2, :w2:2], out[2][:h2:2, :w2:2]
+    else:
+        u, v = out[1], out[2]
+    return (y, torch.clamp(u * 255.0 + 128.5, 0, 255).to(torch.uint8),
+            torch.clamp(v * 255.0 + 128.5, 0, 255).to(torch.uint8))
+
+
+def _api1_block_buffers(hdr_planes, sdr_planes, *, hdr_fmt: ImgFmt,
+                        sdr_fmt: ImgFmt, hdr_cg: ColorGamut,
+                        sdr_cg: ColorGamut, ct: ColorTransfer,
+                        rng: ColorRange, scale: int, multichannel: bool,
+                        gamma: float, quality: int, map_quality: int,
+                        use_base_cg: bool, one_pass: bool):
+    """API-1 stage 1 (the JAX ``_fused_api1``, jpegr.cpp:236-295) on the
+    device.  hdr_planes: P010 (y, uv) or the packed RGB plane; sdr_planes:
+    YUV420 (y, u, v) or the packed RGBA8888 plane.
+
+    One-pass: [(coeffs, layout)] of the base and the gain-map scan.
+    Two-pass: (the base's (coeffs, layout), gains, gmin, gmax) -- the
+    bounds are resolved on the host, then ``_api1_gainmap_scan``
+    quantises."""
+    h, w = hdr_planes[0].shape[:2]
+    if hdr_fmt == ImgFmt.P010:
+        hdr_vals = pixel.unpack_p010(*hdr_planes, rng, h, w)
+    elif hdr_fmt == ImgFmt.RGBA1010102:
+        hdr_vals = pixel.unpack_rgba1010102(hdr_planes[0])
+    else:
+        hdr_vals = pixel.unpack_rgbaf16(hdr_planes[0])
+    if sdr_fmt == ImgFmt.YUV420:
+        sdr_vals = pixel.unpack_yuv8(*sdr_planes, 2, 2, h, w)
+        planes = _convert_yuv_encoding_planes(
+            sdr_planes, ImgFmt.YUV420, sdr_cg, ColorGamut.DISPLAY_P3, h, w)
+        base = _base_scan(list(planes), _SAMPLING_420, quality)
+    else:  # RGBA8888
+        sdr_vals = pixel.unpack_rgba8888(sdr_planes[0])
+        planes = _convert_yuv_encoding_planes(
+            _rgb_vals_to_yuv444_planes(sdr_vals, sdr_cg), ImgFmt.YUV444,
+            sdr_cg, ColorGamut.DISPLAY_P3, h, w)
+        base = _base_scan(list(planes), _SAMPLING_444, quality)
+    common = dict(sdr_fmt=sdr_fmt, hdr_fmt=hdr_fmt, sdr_cg=sdr_cg,
+                  hdr_cg=hdr_cg, ct=ct, scale=scale,
+                  multichannel=multichannel, use_luminance=True,
+                  sdr_is_601=False, use_base_cg=use_base_cg)
+    if one_pass:
+        max_boost = (colors.reference_display_peak_nits(ct)
+                     / colors.SDR_WHITE_NITS)
+        gm = gainmap_ops.generate_gainmap_onepass(
+            sdr_vals, hdr_vals, gamma=gamma, max_boost=max_boost, **common)
+        return [base, _gainmap_scan(gm, multichannel, map_quality)]
+    gains, gmin, gmax = gainmap_ops.gainmap_float_pass(sdr_vals, hdr_vals,
+                                                       **common)
+    return base, gains, gmin, gmax
+
+
+def _api1_gainmap_scan(gains, lo, hi, gamma: float, *, multichannel: bool,
+                       map_quality: int):
+    """API-1 two-pass stage 2 (the JAX ``_fused_api1_gm``): the map
+    quantised with the resolved bounds, then its (coeffs, layout)."""
+    gm = gainmap_ops.encode_gainmap_twopass(gains, lo, hi, gamma)
+    return _gainmap_scan(gm, multichannel, map_quality)
+
+
+def _twopass_metadata(jr, ct: ColorTransfer, lo: np.ndarray, hi: np.ndarray,
+                     use_base_cg: bool) -> GainMapMetadata:
+    """Two-pass metadata from the resolved log2 bounds (jpegr.cpp:947-1027):
+    one value per channel of a 3-channel map, else the one value for all."""
+    md = GainMapMetadata()
+    if jr.use_multi_channel_gainmap:
+        md.max_content_boost[:] = np.exp2(np.resize(hi, 3))
+        md.min_content_boost[:] = np.exp2(np.resize(lo, 3))
+    else:
+        md.max_content_boost[:] = np.exp2(hi[0])
+        md.min_content_boost[:] = np.exp2(lo[0])
+    md.gamma[:] = jr.gamma
+    md.offset_sdr[:] = colors.SDR_OFFSET
+    md.offset_hdr[:] = colors.HDR_OFFSET
+    md.hdr_capacity_min = 1.0
+    hdr_white = colors.reference_display_peak_nits(ct)
+    md.hdr_capacity_max = (jr.target_disp_peak_brightness
+                           / colors.SDR_WHITE_NITS
+                           if jr.target_disp_peak_brightness != -1.0
+                           else hdr_white / colors.SDR_WHITE_NITS)
+    md.use_base_cg = use_base_cg
+    return md
+
+
 def _onepass_metadata(jr, ct: ColorTransfer,
                       use_base_cg: bool) -> GainMapMetadata:
     """One-pass metadata is closed-form (jpegr.cpp:712-828)."""
@@ -297,15 +395,10 @@ def _use_base_cg(sdr_cg: ColorGamut, hdr_cg: ColorGamut, write_xmp) -> bool:
         or (hdr_cg == ColorGamut.DISPLAY_P3 and sdr_cg != ColorGamut.BT2100))
 
 
-# signed torch carrier of a numpy sample width
-_CARRIER = {2: np.int16, 4: np.int32}
-
-
 def upload_planes(planes, device: torch.device):
-    """Raw upload of 16- or 32-bit sample planes as int16 / int32 views of
-    their unsigned samples (one copy each, no repacking)."""
-    return [torch.from_numpy(np.ascontiguousarray(p).view(
-        _CARRIER[p.dtype.itemsize])).to(device) for p in planes]
+    """Raw upload of sample planes, 16- or 32-bit ones as int16 / int32
+    views of their unsigned samples (one copy each, no repacking)."""
+    return [pixel.plane_tensor(p, device) for p in planes]
 
 
 def _p010_planes(img):
@@ -316,6 +409,24 @@ def upload_p010(img, device: torch.device):
     """Raw upload of the two P010 planes as int16 views of their u16
     samples."""
     return upload_planes(_p010_planes(img), device)
+
+
+def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
+                       base_sampling, icc_cg: ColorGamut, scale: int,
+                       metadata: GainMapMetadata, exif: bytes | None,
+                       gm_ct: ColorTransfer, gm_cg: ColorGamut, pack) -> bytes:
+    """The back half of a fused encode: one `pack` of both scans on the
+    device, one download, the host join of each scan and the container."""
+    words, blen = _pack_scans(scans, pack)
+    words_h = words.cpu().numpy().view(np.uint32)
+    blen_h = blen.cpu().numpy().astype(np.uint16)
+    (_, bl), (_, gl) = scans
+    n_base = bl.mcus_h * bl.bpr
+    base_scan, gm_scan = fetch_blocks_multi(
+        words_h, [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
+    return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
+                               icc_cg, scale, gm_scan, metadata, exif, gm_ct,
+                               gm_cg)
 
 
 def _encode_api0(jr, img, quality: int, exif: bytes | None, block_buffers,
@@ -332,17 +443,10 @@ def _encode_api0(jr, img, quality: int, exif: bytes | None, block_buffers,
         multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
         quality=int(quality), map_quality=jr.map_compress_quality,
         use_base_cg=use_base_cg, **kw)
-    words, blen = _pack_scans(scans, pack)
-    words_h = words.cpu().numpy().view(np.uint32)
-    blen_h = blen.cpu().numpy().astype(np.uint16)
-    (_, bl), (_, gl) = scans
-    n_base = bl.mcus_h * bl.bpr
-    base_scan, gm_scan = fetch_blocks_multi(
-        words_h, [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
-    metadata = _onepass_metadata(jr, ct, use_base_cg)
-    return _assemble_container(jr, img.w, img.h, quality, base_scan,
-                               base_sampling, ColorGamut.DISPLAY_P3, scale,
-                               gm_scan, metadata, exif, ct, cg)
+    return _pack_and_assemble(
+        jr, img.w, img.h, quality, scans, base_sampling,
+        ColorGamut.DISPLAY_P3, scale, _onepass_metadata(jr, ct, use_base_cg),
+        exif, ct, cg, pack)
 
 
 def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
@@ -373,33 +477,80 @@ def encode_api0_yuv444_10_fused(jr, img, quality: int, exif: bytes | None,
         pack, rng=ColorRange(img.range))
 
 
+API1_HDR_FORMATS = (ImgFmt.P010, ImgFmt.RGBA1010102, ImgFmt.RGBAF16)
+API1_SDR_FORMATS = (ImgFmt.YUV420, ImgFmt.RGBA8888)
+
+
+def api1_bounds(jr, gmin: torch.Tensor, gmax: torch.Tensor):
+    """The two-pass boost bounds (lo, hi) resolved on the host from the
+    device's per-channel min/max: one read of those 2C floats."""
+    mm = torch.stack([gmin, gmax]).cpu().numpy()
+    return gainmap_ops.resolve_boost_bounds(
+        mm[0], mm[1], multichannel=jr.use_multi_channel_gainmap,
+        min_content_boost=jr.min_content_boost,
+        max_content_boost=jr.max_content_boost, merge_channels=jr.write_xmp)
+
+
+def api1_scans(jr, hdr, sdr, quality: int):
+    """The API-1 device stages of a request on `jr.device`: (the base's and
+    the gain map's [(coeffs, layout)], metadata, base sampling, map scale),
+    or None when the format combination needs the general path.  For
+    BEST_QUALITY this includes the read of the bounds to the host."""
+    hdr_fmt, sdr_fmt = ImgFmt(hdr.fmt), ImgFmt(sdr.fmt)
+    if hdr_fmt not in API1_HDR_FORMATS or sdr_fmt not in API1_SDR_FORMATS:
+        return None
+    hdr_cg, sdr_cg = ColorGamut(hdr.cg), ColorGamut(sdr.cg)
+    ct = ColorTransfer(hdr.ct)
+    scale = _resolve_scale(jr, sdr)
+    use_base_cg = _use_base_cg(sdr_cg, hdr_cg, jr.write_xmp)
+    one_pass = EncPreset(jr.preset) == EncPreset.REALTIME
+    hdr_planes = _p010_planes(hdr) if hdr_fmt == ImgFmt.P010 \
+        else hdr.planes[:1]
+    sdr_planes = sdr.planes[:3] if sdr_fmt == ImgFmt.YUV420 \
+        else sdr.planes[:1]
+    up = upload_planes([*hdr_planes, *sdr_planes], jr.device)
+    out = _api1_block_buffers(
+        up[:len(hdr_planes)], up[len(hdr_planes):], hdr_fmt=hdr_fmt,
+        sdr_fmt=sdr_fmt, hdr_cg=hdr_cg, sdr_cg=sdr_cg, ct=ct,
+        rng=ColorRange(hdr.range), scale=scale,
+        multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
+        quality=int(quality), map_quality=jr.map_compress_quality,
+        use_base_cg=use_base_cg, one_pass=one_pass)
+    if one_pass:
+        scans = out
+        metadata = _onepass_metadata(jr, ct, use_base_cg)
+    else:
+        base, gains, gmin, gmax = out
+        lo, hi = api1_bounds(jr, gmin, gmax)
+        scans = [base, _api1_gainmap_scan(
+            gains, lo, hi, jr.gamma,
+            multichannel=jr.use_multi_channel_gainmap,
+            map_quality=jr.map_compress_quality)]
+        metadata = _twopass_metadata(jr, ct, lo, hi, use_base_cg)
+    sampling = _SAMPLING_420 if sdr_fmt == ImgFmt.YUV420 else _SAMPLING_444
+    return scans, metadata, sampling, scale
+
+
+def encode_api1_fused(jr, hdr, sdr, quality: int, exif: bytes | None, *,
+                      pack=pack_kernel.pack_scan) -> bytes | None:
+    """JpegR.encode_api1 on the device: raw HDR + raw SDR in, JPEG_R out,
+    both presets with one `pack` launch; None when the format combination
+    needs the general path."""
+    out = api1_scans(jr, hdr, sdr, quality)
+    if out is None:
+        return None
+    scans, metadata, sampling, scale = out
+    return _pack_and_assemble(jr, hdr.w, hdr.h, quality, scans, sampling,
+                              ColorGamut(sdr.cg), scale, metadata, exif,
+                              ColorTransfer(hdr.ct), ColorGamut(hdr.cg),
+                              pack)
+
+
 # ---------------------------------------------------------------------------
 # decode
 
 # chroma subsampling (h, v) of the base per sampling key
 DECODE_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
-
-
-def decode_coefficients(data: bytes, info):
-    """Host Huffman decode to MCU-padded coefficient arrays + natural-order
-    quant tables per component (the jpeg/decoder.py front half, without the
-    device IDCT)."""
-    _validate(info)
-    fmt = get_output_sampling_format(info) if info.num_components > 1 \
-        else ImgFmt.YUV400
-    hmax = max(c.h for c in info.components)
-    vmax = max(c.v for c in info.components)
-    mcus_w = -(-info.width // (8 * hmax))
-    mcus_h = -(-info.height // (8 * vmax))
-    comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
-             for c in info.components]
-    dc = [info.dc_tables.get(i) for i in range(4)]
-    ac = [info.ac_tables.get(i) for i in range(4)]
-    coeffs, _ = native.decode_scan(data[info.scan_offset:], comps, mcus_w,
-                                   mcus_h, dc, ac, info.restart_interval)
-    qts = [np.asarray(require_qtable(info, c), np.int32)
-           for c in info.components]
-    return coeffs, qts, fmt
 
 
 def upload_coeff_planes(planes, device: torch.device):

@@ -9,8 +9,10 @@ Port of ``libultrahdr_tpu/jpeg/decoder.py``:
 - ported to PyTorch: ``_ycc_to_rgb``, the device twin of libjpeg's fancy
   chroma upsample and fixed-point YCbCr->RGB, in int32 (bit-exact).
 
-The Huffman decode itself is the shared native C++ (``native.decode_scan``,
-driven by ``fused.decode_coefficients``); the IDCT is ``dct.inverse_plane``.
+The Huffman decode itself is the host native C++ (``native.decode_scan``,
+driven by ``decode_coefficients``); the IDCT is ``dct.inverse_plane``.
+``decode_to_planes`` (baseline only) chains the two: the host Huffman
+decode, a raw upload and the bit-exact IDCT on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from ..errors import UhdrError, UhdrErrorCode, unsupported
 from ..types import ImgFmt
+from . import native
+from .dct import inverse_plane
 from .tables import ZIGZAG_ORDER, HuffTable
 
 MIN_WIDTH = MIN_HEIGHT = 8
@@ -278,6 +282,52 @@ def get_output_sampling_format(info: JpegInfo) -> ImgFmt:
     if key not in table:
         raise unsupported(f"unsupported luma sampling {key}")
     return table[key]
+
+
+def decode_coefficients(data: bytes, info: JpegInfo):
+    """Host Huffman decode of a baseline scan to MCU-padded coefficient
+    arrays + natural-order quant tables per component (the front half of
+    ``decode_to_planes``, without the IDCT)."""
+    _validate(info)
+    fmt = get_output_sampling_format(info)
+    hmax = max(c.h for c in info.components)
+    vmax = max(c.v for c in info.components)
+    mcus_w = -(-info.width // (8 * hmax))
+    mcus_h = -(-info.height // (8 * vmax))
+    comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
+             for c in info.components]
+    dc = [info.dc_tables.get(i) for i in range(4)]
+    ac = [info.ac_tables.get(i) for i in range(4)]
+    coeffs, _ = native.decode_scan(data[info.scan_offset:], comps, mcus_w,
+                                   mcus_h, dc, ac, info.restart_interval)
+    qts = [np.asarray(require_qtable(info, c), np.int32)
+           for c in info.components]
+    return coeffs, qts, fmt
+
+
+def decode_to_planes(data: bytes, info: JpegInfo | None,
+                     device: torch.device):
+    """Decode a baseline JPEG to its subsampled YCbCr planes
+    (DECODE_TO_YCBCR mode): (u8 tensors on `device`, fmt).  Progressive
+    streams raise ``unsupported``."""
+    if info is None:
+        info = parse_jpeg(data)
+    if info.progressive:
+        raise unsupported(
+            "progressive JPEG decode is not ported yet (ROADMAP.md, Queue 1 "
+            "item 9b.3: the general decode path)")
+    coeffs, qts, fmt = decode_coefficients(data, info)
+    hmax = max(c.h for c in info.components)
+    vmax = max(c.v for c in info.components)
+    planes = []
+    for c, q, comp in zip(coeffs, qts, info.components):
+        # stored plane dims: ceil(w*h_i/hmax) x ceil(h*v_i/vmax)
+        pw = -(-info.width * comp.h // hmax)
+        ph = -(-info.height * comp.v // vmax)
+        planes.append(inverse_plane(
+            torch.from_numpy(np.ascontiguousarray(c, np.int16)).to(device),
+            q, ph, pw))
+    return planes, fmt
 
 
 # libjpeg jdcolor.c ycc_rgb_convert fixed-point tables, SCALEBITS=16,

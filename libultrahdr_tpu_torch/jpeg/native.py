@@ -1,19 +1,22 @@
-"""ctypes bindings to the shared host entropy C++ that the encode slice needs.
+"""ctypes bindings to the port's host entropy C++.
 
-The C++ is shared by path, not copied: ``libultrahdr_tpu/jpeg/_native/``
-``jpeg_entropy.cpp`` and ``host_decode.cpp`` are compiled with the system
-C++ compiler (UHDR_TPU_CXX, default g++) at first use into the port's
-``_build/`` directory, for the generic target (no -march=native: the bound
-functions are scalar integer code, and the library stays valid on any host
-that finds it in ``_build/``).  Reading those source files imports nothing
-of the JAX package.  Bound here:
+The port keeps its own copy of the JAX package's native sources,
+``csrc/host/jpeg_entropy.cpp`` and ``csrc/host/host_decode.cpp`` (identical
+in code, so the host stages of both packages agree bit for bit).  They are
+compiled with the system C++ compiler (UHDR_TPU_CXX, default g++) at first
+use into the port's ``_build/`` directory, for the generic target (no
+-march=native: the bound functions are scalar integer code, and the library
+stays valid on any host that finds it in ``_build/``).  Bound here:
 
 - ``join_blocks``: the restart-row joiner (``uhdr_join_blocks``) that turns
   the device's word-aligned block segments into the final scan: bit-level
   concatenation, one byte-aligned restart row per MCU row, RST markers and
   byte stuffing in one sequential pass;
-- ``decode_scan``: the baseline scan decoder, used by the checks to read the
-  quantised coefficients back out of an encoded scan.
+- ``decode_scan``: the baseline scan decoder (the decode's host Huffman
+  stage, and the checks' reader of an encoded scan's coefficients);
+- ``encode_scan``: the general path's host entropy coder
+  (``uhdr_encode_scan``): one interleaved baseline scan from quantised
+  coefficient planes, with byte stuffing and optional restart markers.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 from .._buildlib import PKG_DIR, build_shared
 from ..errors import UhdrError, UhdrErrorCode
 
-_SRC_DIR = PKG_DIR.parent / "libultrahdr_tpu" / "jpeg" / "_native"
+_SRC_DIR = PKG_DIR / "csrc" / "host"
 _SRCS = [_SRC_DIR / "jpeg_entropy.cpp", _SRC_DIR / "host_decode.cpp"]
 _LOCK = threading.Lock()
 _LIB = None
@@ -47,6 +50,12 @@ def get_lib():
             lib.uhdr_join_blocks.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_encode_scan.restype = ctypes.c_int64
+            lib.uhdr_encode_scan.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
             lib.uhdr_decode_scan.restype = ctypes.c_int64
             lib.uhdr_decode_scan.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64,
@@ -95,6 +104,32 @@ def _table_blobs(dc_tables, ac_tables):
             ac_bits[i] = np.asarray(t.bits, np.uint8)
             ac_vals[i, :len(t.values)] = np.asarray(t.values, np.uint8)
     return dc_bits, dc_vals, ac_bits, ac_vals
+
+
+def encode_scan(comps, mcus_w: int, mcus_h: int, dc_tables, ac_tables,
+                restart_interval: int = 0) -> bytes:
+    """Encode one interleaved baseline scan on the host.  comps: [{coeffs:
+    (bh, bw, 64) int16 zigzag coefficients, MCU-padded, h, v, dc_tbl,
+    ac_tbl}, ...].  Returns the entropy-coded bytes, stuffed."""
+    lib = get_lib()
+    n = len(comps)
+    arrs = [np.ascontiguousarray(c["coeffs"], np.int16) for c in comps]
+    ptrs = (ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs])
+    meta = np.zeros((n, 6), np.int32)
+    for i, c in enumerate(comps):
+        bh, bw = arrs[i].shape[:2]
+        meta[i] = [bw, bh, c["h"], c["v"], c["dc_tbl"], c["ac_tbl"]]
+    dcb, dcv, acb, acv = _table_blobs(dc_tables, ac_tables)
+    # room for every coefficient a longest code, stuffed: 4 bytes each
+    cap = sum(a.size for a in arrs) * 4 + 65536
+    out = np.empty(cap, np.uint8)
+    written = lib.uhdr_encode_scan(
+        ptrs, meta.ctypes.data, n, mcus_w, mcus_h, restart_interval,
+        dcb.ctypes.data, dcv.ctypes.data, acb.ctypes.data, acv.ctypes.data,
+        out.ctypes.data, cap)
+    if written < 0:
+        raise RuntimeError(f"entropy encode failed: {written}")
+    return out[:written].tobytes()
 
 
 def decode_scan(data: bytes, comps, mcus_w: int, mcus_h: int, dc_tables,

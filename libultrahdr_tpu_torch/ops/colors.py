@@ -1,8 +1,9 @@
 """Colour science primitives used by the tone map and the gain map.
 
-Port of the parts of ``libultrahdr_tpu/ops/colors.py`` that the API-0 encode
-and the fused decode run: transfer functions, gamut and YUV matrices,
-luminance, clamps, the HDR float sanitizer.  Channels lie on
+Port of the parts of ``libultrahdr_tpu/ops/colors.py`` that the encodes
+and the fused decode run: transfer functions, gamut and YUV matrices, the
+YUV-encoding conversion matrices, luminance, clamps, the HDR float
+sanitizer.  Channels lie on
 the leading axis, shape (3, ...); the 3x3 conversions are unrolled float32
 multiply-adds in the same order as the JAX package.  The matrices are the
 reference's rounded values (gainmapmath.cpp:603-674), copied unchanged.
@@ -19,6 +20,10 @@ from ..types import ColorGamut, ColorTransfer
 SDR_WHITE_NITS = 203.0
 HLG_MAX_NITS = 1000.0
 PQ_MAX_NITS = 10000.0
+
+# gain computation offsets (gainmapmath.h:549-550)
+HDR_OFFSET = 1e-7
+SDR_OFFSET = 1e-7
 
 # maximum normalized pixel value for linear-HDR float intent (gainmapmath.h:577)
 MAX_PIXEL_FLOAT_HDR_LINEAR = PQ_MAX_NITS / SDR_WHITE_NITS
@@ -244,6 +249,45 @@ def gamut_conversion_matrix(dst_cg, src_cg) -> np.ndarray:
 
 def convert_gamut(rgb: torch.Tensor, matrix) -> torch.Tensor:
     return apply_3x3(matrix, rgb)
+
+
+# ---------------------------------------------------------------------------
+# YUV-space gamut ("encoding") conversion matrices (gainmapmath.cpp:638-674)
+
+YUV_BT709_TO_BT601 = np.array([[1.0, 0.101579, 0.196076],
+                               [0.0, 0.989854, -0.110653],
+                               [0.0, -0.072453, 0.983398]], np.float32)
+YUV_BT709_TO_BT2100 = np.array([[1.0, -0.016969, 0.096312],
+                                [0.0, 0.995306, -0.051192],
+                                [0.0, 0.011507, 1.002637]], np.float32)
+YUV_BT601_TO_BT709 = np.array([[1.0, -0.118188, -0.212685],
+                               [0.0, 1.018640, 0.114618],
+                               [0.0, 0.075049, 1.025327]], np.float32)
+YUV_BT601_TO_BT2100 = np.array([[1.0, -0.128245, -0.115879],
+                                [0.0, 1.010016, 0.061592],
+                                [0.0, 0.086969, 1.029350]], np.float32)
+YUV_BT2100_TO_BT709 = np.array([[1.0, 0.018149, -0.095132],
+                                [0.0, 1.004123, 0.051267],
+                                [0.0, -0.011524, 0.996782]], np.float32)
+YUV_BT2100_TO_BT601 = np.array([[1.0, 0.117887, 0.105521],
+                                [0.0, 0.995211, -0.059549],
+                                [0.0, -0.084085, 0.976518]], np.float32)
+
+
+def yuv_encoding_conversion_matrix(src_cg, dst_cg):
+    """JpegR::convertYuv coefficient table (jpegr.cpp:430-513); None for
+    the identity.  Display-P3 uses the BT.601 YUV encoding."""
+    src, dst = ColorGamut(src_cg), ColorGamut(dst_cg)
+    if src == dst:
+        return None
+    return {
+        (ColorGamut.BT709, ColorGamut.DISPLAY_P3): YUV_BT709_TO_BT601,
+        (ColorGamut.BT709, ColorGamut.BT2100): YUV_BT709_TO_BT2100,
+        (ColorGamut.DISPLAY_P3, ColorGamut.BT709): YUV_BT601_TO_BT709,
+        (ColorGamut.DISPLAY_P3, ColorGamut.BT2100): YUV_BT601_TO_BT2100,
+        (ColorGamut.BT2100, ColorGamut.BT709): YUV_BT2100_TO_BT709,
+        (ColorGamut.BT2100, ColorGamut.DISPLAY_P3): YUV_BT2100_TO_BT601,
+    }[(src, dst)]
 
 
 def clip_negatives(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Pixel format unpack/pack: raw integer planes <-> planar float32 (3, H, W).
 
-Port of the parts of ``libultrahdr_tpu/ops/pixel.py`` that the API-0 encode
-and the fused decode run.  Packed images keep the JAX package's layouts in
+Port of ``libultrahdr_tpu/ops/pixel.py``: the unpackers, the ``unpack``
+dispatcher over a ``RawImage`` and the packers.  Packed images keep the JAX package's layouts in
 torch's signed carriers: RGBA1010102 and RGBA8888 are (H, W) int32 tensors
 holding the u32 bit patterns (an opaque alpha sets bit 31, so every value is
 negative as int32), RGBAF16 an (H, W, 4) int16 tensor holding the u16
@@ -15,10 +15,29 @@ identical to the reference's getYuv420Pixel-style nearest indexing
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..types import ColorRange
+from ..errors import unsupported
+from ..types import ColorRange, ImgFmt, RawImage
 from .colors import sanitize_pixel
+
+# signed torch carrier of a 16- or 32-bit numpy sample width
+_CARRIER = {2: np.int16, 4: np.int32}
+
+
+def plane_tensor(p, device: torch.device) -> torch.Tensor:
+    """A host plane (numpy) or a tensor on `device`, one copy at most:
+    16- and 32-bit samples travel as int16 / int32 views of their
+    patterns, 8-bit ones as uint8."""
+    if isinstance(p, torch.Tensor):
+        return p.to(device)
+    a = np.ascontiguousarray(p)
+    if not a.flags.writeable:         # torch shares a CPU array's memory
+        a = a.copy()
+    if a.dtype.itemsize in _CARRIER:
+        a = a.view(_CARRIER[a.dtype.itemsize])
+    return torch.from_numpy(a).to(device)
 
 
 def _replicate_chroma(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
@@ -89,6 +108,11 @@ def unpack_rgba8888(packed: torch.Tensor) -> torch.Tensor:
                         for s in (0, 8, 16)]) / 255.0
 
 
+def unpack_rgb888(arr: torch.Tensor) -> torch.Tensor:
+    """uint8 (H,W,3) -> (3,H,W) float in [0,1] (gainmapmath.cpp:451-460)."""
+    return arr.to(torch.float32).permute(2, 0, 1) / 255.0
+
+
 def unpack_rgba1010102(packed: torch.Tensor) -> torch.Tensor:
     """(H,W) int32 u32 patterns -> (3,H,W) float in [0,1]
     (gainmapmath.cpp:474-484).  R bits 9:0, G 19:10, B 29:20."""
@@ -102,6 +126,35 @@ def unpack_rgbaf16(comp: torch.Tensor) -> torch.Tensor:
     the reference's halfToFloat for every finite, inf and nan input."""
     rgb = comp.view(torch.float16)[..., :3].permute(2, 0, 1)
     return sanitize_pixel(rgb.to(torch.float32))
+
+
+def unpack(img: RawImage, device: torch.device) -> torch.Tensor:
+    """RawImage -> (3, H, W) float32 YUV or RGB 'gamma' values on `device`,
+    the dispatch analog of getPixelFn (gainmapmath.cpp:1221-1246).  The
+    planes may be host arrays or tensors already on the device."""
+    f = ImgFmt(img.fmt)
+    h, w = img.h, img.w
+
+    def planes(n):
+        return [plane_tensor(p, device) for p in img.planes[:n]]
+    sub = {ImgFmt.YUV444: (1, 1), ImgFmt.YUV422: (2, 1),
+           ImgFmt.YUV420: (2, 2)}
+    if f in sub:
+        return unpack_yuv8(*planes(3), *sub[f], h, w)
+    if f == ImgFmt.YUV400:
+        y = planes(1)[0].to(torch.float32) * (1.0 / 255.0)
+        z = torch.zeros_like(y)
+        return torch.stack([y, z, z])
+    if f == ImgFmt.P010:
+        return unpack_p010(*planes(2), ColorRange(img.range), h, w)
+    if f == ImgFmt.YUV444_10:
+        return unpack_yuv444_10(*planes(3), ColorRange(img.range))
+    one = {ImgFmt.RGBA8888: unpack_rgba8888, ImgFmt.RGB888: unpack_rgb888,
+           ImgFmt.RGBA1010102: unpack_rgba1010102,
+           ImgFmt.RGBAF16: unpack_rgbaf16}
+    if f in one:
+        return one[f](planes(1)[0])
+    raise unsupported(f"no unpack implementation for format {f}")
 
 
 def _scale_u8(x: torch.Tensor) -> torch.Tensor:

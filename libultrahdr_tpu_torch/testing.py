@@ -9,7 +9,7 @@
 - ``read_jpegr``: split a JPEG_R file through its MPF index and read the
   gain map's ISO 21496-1 metadata;
 - ``decode_scan_coeffs``: decode one JPEG's scan back to its quantised
-  coefficients with the shared native decoder;
+  coefficients with the host native decoder;
 - ``pack_scans_v1`` / ``pack_scans_v2``: the block-pack and tile-pack
   routes (slots -> kernel -> compaction), which no request runs;
 - ``apply_tables_plain`` / ``apply_gainmap_tables``: the apply kernel's
@@ -205,6 +205,23 @@ def read_jpegr(data: bytes) -> tuple[bytes, bytes, GainMapMetadata]:
     raise ValueError("no ISO 21496-1 metadata in the gain-map image")
 
 
+ICC_SIG = b"ICC_PROFILE\x00"
+
+
+def without_app_segments(jpeg: bytes, keep_icc: bool = False) -> bytes:
+    """A JPEG with its APPn segments (JFIF, EXIF, XMP, ICC, MPF, ISO)
+    dropped, but for its ICC profile with `keep_icc`: the image itself,
+    which a JPEG_R container passes through."""
+    out, pos = bytearray(jpeg[:2]), 2
+    for marker, start, end in _segments(jpeg):
+        if not 0xE0 <= marker <= 0xEF or (
+                keep_icc and marker == 0xE2
+                and jpeg[start:start + len(ICC_SIG)] == ICC_SIG):
+            out += jpeg[start - 4:end]
+        pos = end
+    return bytes(out + jpeg[pos:])
+
+
 def scan_data(jpeg: bytes) -> bytes:
     """The entropy-coded segment of a single-scan JPEG: the bytes after the
     SOS header, up to and without the closing EOI."""
@@ -217,7 +234,7 @@ def scan_data(jpeg: bytes) -> bytes:
 def decode_scan_coeffs(jpeg: bytes, layout: ScanLayout) -> list[np.ndarray]:
     """Quantised zigzag coefficients of a JPEG written by the port (one
     restart interval per MCU row, luma tables for component 0), decoded by
-    the shared native decoder; one (bh, bw, 64) int16 array per
+    the host native decoder; one (bh, bw, 64) int16 array per
     component."""
     comps = [{"h": hs, "v": vs, "dc_tbl": int(i > 0), "ac_tbl": int(i > 0)}
              for i, (hs, vs) in enumerate(layout.sampling)]

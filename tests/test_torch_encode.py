@@ -177,8 +177,8 @@ def test_encoder_lifecycle_and_validation():
     with pytest.raises(port.UhdrError):
         enc.set_raw_image(srgb, port.ImgLabel.HDR)
     with pytest.raises(port.UhdrError) as e:
-        enc.set_raw_image(img, port.ImgLabel.SDR)
-    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
+        enc.set_raw_image(img, port.ImgLabel.SDR)   # P010 is no SDR format
+    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_INVALID_PARAM
     enc.set_raw_image(img, port.ImgLabel.HDR)
     data = enc.encode()
     assert enc.encode() is data and enc.get_encoded_stream() is data
@@ -186,16 +186,24 @@ def test_encoder_lifecycle_and_validation():
 
 
 def test_other_hdr_formats_raise_unsupported():
-    """Every API-0 HDR format is ported now; what is not is an SDR intent
-    beside the HDR one (API-1/2): it raises unsupported naming ROADMAP."""
+    """Every API-0 HDR format is ported, and an SDR intent beside the HDR
+    one now selects API-1; what is not ported is a progressive compressed
+    SDR intent (API-3): it raises unsupported naming ROADMAP."""
     rgba = testing.photo_rgba1010102(16, 16)
     enc = port.UhdrEncoder(device="cpu")
     enc.set_raw_image(rgba, port.ImgLabel.HDR)
     sdr = port.RawImage(port.ImgFmt.RGBA8888, port.ColorGamut.DISPLAY_P3,
                         port.ColorTransfer.SRGB, port.ColorRange.FULL, 16, 16,
                         [np.zeros((16, 16), np.uint32)])
+    enc.set_raw_image(sdr, port.ImgLabel.SDR)
+    testing.read_jpegr(enc.encode())
+    base, _, _ = testing.read_jpegr(enc.encode())
+    sof = base.index(b"\xff\xc0")
+    enc = port.UhdrEncoder(device="cpu")
+    enc.set_raw_image(rgba, port.ImgLabel.HDR)
+    enc.set_compressed_image(port.CompressedImage(
+        base[:sof] + b"\xff\xc2" + base[sof + 2:]), port.ImgLabel.SDR)
     with pytest.raises(port.UhdrError) as e:
-        enc.set_raw_image(sdr, port.ImgLabel.SDR)
+        enc.encode()
     assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
     assert "ROADMAP" in str(e.value)
-    testing.read_jpegr(enc.encode())

@@ -205,15 +205,58 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _jax_package_paths(source: str) -> list[str]:
+    """Expressions of a Python source that build a filesystem path into
+    the JAX package: a ``/`` join, a path constructor or an os.path / glob
+    / open call with a string component ``libultrahdr_tpu``."""
+    import ast
+
+    def into_jax(node):
+        return isinstance(node, ast.Constant) and isinstance(
+            node.value, str) and node.value.replace("\\", "/").strip(
+            "./").split("/")[0] == "libultrahdr_tpu"
+    path_calls = {"Path", "PurePath", "join", "joinpath", "open", "glob",
+                  "rglob", "listdir", "exists", "is_file", "is_dir",
+                  "abspath", "realpath", "CDLL"}
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div) \
+                and (into_jax(node.left) or into_jax(node.right)):
+            found.append(ast.unparse(node))
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in path_calls and any(into_jax(a) for a in node.args):
+                found.append(ast.unparse(node))
+    return found
+
+
 def test_no_jax_import_in_port_sources():
+    """No port module or root script of the port imports jax or the JAX
+    package, or builds a filesystem path into the JAX package (the port
+    keeps its own copies, the host C++ included); no port C++/CUDA source
+    includes one."""
     scripts = [REPO / n for n in ("chip_smoke.py", "profile_decode.py",
-                                  "profile_variants.py")]
+                                  "profile_encode.py", "profile_variants.py")]
     for f in [*(REPO / "libultrahdr_tpu_torch").rglob("*.py"), *scripts]:
-        for line in f.read_text().splitlines():
+        text = f.read_text()
+        for line in text.splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), (f, s)
             assert "libultrahdr_tpu." not in s or not s.startswith(
                 ("import", "from")), (f, s)
+        assert not _jax_package_paths(text), (f, _jax_package_paths(text))
+    csrc = REPO / "libultrahdr_tpu_torch" / "csrc"
+    for f in [*csrc.rglob("*.cu"), *csrc.rglob("*.cpp")]:
+        for line in f.read_text().splitlines():
+            assert not (line.startswith("#include")
+                        and "libultrahdr_tpu/" in line), (f, line)
+    # the check refuses the path into the JAX C++ the port once compiled
+    assert _jax_package_paths(
+        'SRC = PKG_DIR.parent / "libultrahdr_tpu" / "jpeg" / "_native"')
+    assert _jax_package_paths('os.path.join(ROOT, "libultrahdr_tpu/ops")')
+    assert not _jax_package_paths('name = "libultrahdr_tpu/fused.py:1041"')
 
 
 def test_cuda_request_without_gpu_raises(monkeypatch):
@@ -221,10 +264,15 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
     default (the entry points run on the card unless the caller asks for the
     CPU); nothing falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    knobs = {k: getattr(port.JpegR(device="cpu"), k) for k in
+             port_jpegr.KNOBS}
     for make in (lambda: port.JpegR(device="cuda"),
                  lambda: port.UhdrEncoder(device="cuda"),
                  lambda: port.UhdrEncoder(device="cuda:0"),
                  lambda: port.UhdrDecoder(device="cuda"),
+                 lambda: port.JpegR(device="cuda",
+                                    preset=port.EncPreset.REALTIME),
+                 lambda: port.JpegR.from_reference_knobs(knobs),
                  port.JpegR, port.UhdrEncoder, port.UhdrDecoder):
         with pytest.raises(port.UhdrError) as e:
             make()

@@ -19,14 +19,19 @@ after:
 2. build the three CUDA kernel libraries (csrc/pack_kernel.cu,
    csrc/block_pack_kernel.cu and csrc/apply_kernel.cu, nvcc, sm_90a) and the
    host C++ (csrc/host/) from the checkout's sources, all four compilers started
-   together; print each library's ptxas lines;
+   together; print each kernel's ptxas line (registers, static shared
+   memory, spills);
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
    planes with the pack's edge cases (block counts that are and are not a
    multiple of the pack kernel's 128-block tile), the pack kernel also on
    320 blocks at its word cap (testing.pack_worst_case_stream), and the
    tile pack also on a dense tile that overflows budget 16
-   (check_tile_budgets must raise): every output bit-identical
+   (check_tile_budgets must raise), and both on testing.synthetic_slots
+   where the block pack's 32-block groups and the tile pack's split of a
+   tile over a cluster of CTAs matter (1 block, fewer than a sub-tile, no
+   multiple of one, four tiles with a ragged last, three tiles whose middle
+   one alone overflows from a later sub-tile on): every output bit-identical
    (torch.equal; the tile pack on its block lengths and every tile's live
    prefix, the rest of a tile being undefined), and the pack kernel's
    twice the same; hold the apply kernel's device tables against the plain
@@ -78,11 +83,13 @@ after:
    pack_scans_v2) pack each configuration's P010 scans in one launch each:
    their joined scans equal the scans of the encode's JPEG_R, and each
    kernel equals its plain version at those shapes.  Prints each kernel's
-   and plain version's time (CUDA events) beside its bound;
+   time alone and through its wrapper, and its plain version's (CUDA
+   events), beside its bound;
 7. prints one JSON line with the kernel records (launches on the paths,
    max abs error against the plain version, ms through the wrapper, the
-   pack kernel's launch alone as kernel_ms (null for the others, whose
-   wrapper is one launch), plain ms, the bound), then the device line.
+   launch alone as kernel_ms for the three pack kernels (null for the
+   apply, whose wrapper is one launch), plain ms, the bound), then the
+   device line.
 
 It imports nothing of JAX and nothing of the JAX package; there is no CPU
 path.
@@ -94,6 +101,7 @@ import concurrent.futures
 import itertools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -190,6 +198,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_report(build_log: str) -> list[str]:
+    """Each kernel's line of `nvcc -Xptxas -v`: its name (the last
+    component of the entry function's mangled name, template arguments
+    left mangled), stack and spills, registers, barriers and static shared
+    memory."""
+    out = []
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", ln)
+        if m:
+            rest, name = m.group(1), ""
+            while (num := re.match(r"\d+", rest)):
+                size = int(num.group())
+                name, rest = rest[num.end():num.end() + size], \
+                    rest[num.end() + size:]
+            args = re.match(r"I(\w+?)EE", rest)
+            out.append(name + (f"<{args.group(1)}>" if args else "") + ":")
+        elif ("registers" in ln or "spill" in ln) and out:
+            out[-1] += " " + ln.strip().removeprefix("ptxas info    : ")
+    return out
+
+
 def bit_identical(got, want, what: str) -> int:
     """Hold a kernel's packed output against its plain version on the same
     card: 0 when the two are bit-identical, else AssertionError."""
@@ -269,10 +298,8 @@ def main() -> int:
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the three "
         "kernel libraries (nvcc sm_90a) and the host C++, in parallel")
     for kname, lib in libs:
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
         log(f"phase 2 {kname} kernel: {lib.build_seconds:.1f} s | "
-            + " | ".join(ptxas))
+            + " | ".join(ptxas_report(lib.build_log)))
 
     # ---- phase 3: kernels against plain on edge-case planes ---------------
     launches0 = {k: kern.launches for k, kern in counted.items()}
@@ -338,7 +365,36 @@ def main() -> int:
     log(f"phase 3 pack kernel == plain on {got[1].numel()} worst-case "
         f"blocks (blen up to {int(got[1].max())} of "
         f"{32 * pk.CAP_WORDS} bits), torch.equal, and the same run again")
-    want3 = {"pack_scan": 8, "pack_blocks": 3, "pack_tiles": 4}
+    # the block pack's groups and the tile pack's split of a tile over a
+    # cluster of CTAs: 1 block, fewer blocks than a sub-tile, a count that
+    # is no multiple of one, four tiles with a ragged last, and three tiles
+    # whose middle one alone overflows budget 16, from a later sub-tile on
+    # (testing.synthetic_slots)
+    tile = pk._TILE
+    for what, n, dense in (
+            ("a single block", 1, ()), ("less than a sub-tile", 100, ()),
+            ("no multiple of a sub-tile", tile + 5 * 128 + 57, ()),
+            ("4 tiles, the last ragged", 3 * tile + 333, ()),
+            ("3 tiles, the middle one overflowing", 3 * tile,
+             ((tile + 640, 2 * tile),))):
+        pays, lens = (t.to(dev) for t in testing.synthetic_slots(
+            n, seed=n, dense=dense))
+        tensors_equal(pk.pack_blocks(pays, lens),
+                      pk.pack_blocks_plain(pays, lens),
+                      f"block pack on {what}")
+        tiles, tblen = pk.pack_tiles(pays, lens, 16)
+        tiles_equal((tiles, tblen), pk.pack_tiles_plain(pays, lens, 16),
+                    f"tile pack on {what}")
+        live = pk.tile_live_words(tblen).cpu()
+        over = (live > tiles.shape[1]).nonzero().flatten().tolist()
+        if over != ([1] if dense else []):
+            raise AssertionError(f"tile pack on {what}: tiles {over} over "
+                                 "budget 16")
+        log(f"phase 3 block pack == plain, tile pack (budget 16) == plain on "
+            f"the live prefixes: {what} ({n} blocks, {tiles.shape[0]} "
+            f"tiles, {live.tolist()[:4]} live words, tiles over budget "
+            f"{over}), torch.equal")
+    want3 = {"pack_scan": 8, "pack_blocks": 8, "pack_tiles": 9}
     for k, n in want3.items():
         if counted[k].launches != launches0[k] + n:
             raise AssertionError(f"phase 3 did not launch the {k} kernel")
@@ -1024,23 +1080,28 @@ def main() -> int:
                 if kname == "pack_tiles" else (tensors_equal, "torch.equal")
             err = held(out, plain(pays, lens, *extra), f"{kname} at 4K {cfg}")
             plain_ms = cuda_ms(lambda: plain(pays, lens, *extra), 5)
+            alone_ms = testing.slot_pack_kernel_ms(kern, pays, lens, *extra)
             ker_ms = cuda_ms(lambda: kern(pays, lens, *extra), 20)
             ker_ms2 = cuda_ms(lambda: kern(pays, lens, *extra), 20)
+            alone_ms2 = testing.slot_pack_kernel_ms(kern, pays, lens, *extra)
             plain_ms2 = cuda_ms(lambda: plain(pays, lens, *extra), 5)
             # ~6 operations per slot (shift, or, add, compare, store); the
             # tile pack writes only each tile's live words
             moved = nbytes(pays, lens, *out) if kname == "pack_blocks" \
                 else nbytes(pays, lens, out[1]) + live_tile_bytes(*out)
             b_ms, b_by = bound(moved, 6 * pays.numel())
-            route_rows[kname, cfg] = dict(ms=(ker_ms + ker_ms2) / 2,
-                                          plain_ms=(plain_ms + plain_ms2) / 2,
-                                          err=err, bound_ms=b_ms,
-                                          bound_by=b_by)
+            route_rows[kname, cfg] = dict(
+                ms=(ker_ms + ker_ms2) / 2,
+                kernel_ms=(alone_ms + alone_ms2) / 2,
+                plain_ms=(plain_ms + plain_ms2) / 2, err=err, bound_ms=b_ms,
+                bound_by=b_by)
             log(f"phase 6 {kname} {cfg} at {n} blocks: kernel == plain "
-                f"({how}), kernel {ker_ms:.3f}/{ker_ms2:.3f} ms "
-                f"({moved / ker_ms / 1e6:.0f} GB/s of {moved / 1e6:.1f} MB), "
-                f"plain {plain_ms:.3f}/{plain_ms2:.3f} ms (CUDA events), "
-                f"bound {b_ms:.4f} ms ({b_by}) | {card}")
+                f"({how}), kernel alone {alone_ms:.4f}/{alone_ms2:.4f} ms "
+                f"({moved / alone_ms / 1e6:.0f} GB/s of {moved / 1e6:.1f} "
+                f"MB), wrapper {ker_ms:.4f}/{ker_ms2:.4f} ms, plain "
+                f"{plain_ms:.3f}/{plain_ms2:.3f} ms (CUDA events), bound "
+                f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / alone_ms:.0f}% of "
+                f"the kernel alone) | {card}")
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))

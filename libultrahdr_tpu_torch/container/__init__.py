@@ -1,4 +1,5 @@
 """Container & metadata layer (host-side, byte-exact): copies of the JAX
-package's ICC, ISO 21496-1, XMP, MPF and JPEG_R container writers."""
+package's ICC, ISO 21496-1, XMP, MPF and JPEG_R container writers and of
+its Apple EXIF MakerNote headroom reader."""
 
-from . import icc, iso21496, jpegr_container, mpf, xmp  # noqa: F401
+from . import exif_apple, icc, iso21496, jpegr_container, mpf, xmp  # noqa: F401

@@ -20,7 +20,9 @@ pack_tiles_pallas  pack_tiles_plain    PACK_TILES_KERNEL  pack_tiles
   ``_build/`` (``csrc/pack_kernel.cu``; ``csrc/block_pack_kernel.cu`` for
   both of the others, see each file's header for the design and what bounds
   it on the H100), launch it on PyTorch's current stream, raise on a refused
-  launch, and count their launches in ``.launches``.
+  launch, and count their launches in ``.launches``.  Each splits into
+  ``buffers()`` (the outputs) and ``launch()`` (the kernel alone, counted),
+  so that a kernel can be timed without its wrapper's host work.
 - The dispatchers send a CPU tensor to the plain version and a CUDA tensor
   to the kernel; anything else raises.  Nothing falls back: a failed build
   or launch propagates.
@@ -296,16 +298,25 @@ class _PackBlocksKernel:
 
     def __call__(self, pays: torch.Tensor, lens: torch.Tensor):
         n = _check_slots("block pack", pays, lens)
-        dev = pays.device
+        out = self.buffers(n, pays.device)
+        self.launch(pays, lens, *out)
+        return out
+
+    @staticmethod
+    def buffers(n: int, dev: torch.device):
+        """(bb_t (54, n), blen (n,)) int32 outputs for n blocks."""
+        return (torch.empty((_CAP, n), dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev))
+
+    def launch(self, pays, lens, bb_t, blen):
+        """The kernel alone on checked slots and buffers()."""
         lib = BLOCK_PACK_LIB.build()
-        bb_t = torch.empty((_CAP, n), dtype=torch.int32, device=dev)
-        blen = torch.empty(n, dtype=torch.int32, device=dev)
         check_launch(lib, lib.uhdr_pack_blocks(
             pays.data_ptr(), lens.data_ptr(), bb_t.data_ptr(),
-            blen.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream),
+            blen.data_ptr(), pays.shape[0],
+            torch.cuda.current_stream(pays.device).cuda_stream),
             "uhdr_pack_blocks")
         self.launches += 1
-        return bb_t, blen
 
 
 class _PackTilesKernel:
@@ -319,19 +330,27 @@ class _PackTilesKernel:
         n = _check_slots("tile pack", pays, lens)
         if not 1 <= budget <= _CAP:
             raise ValueError(f"tile pack: budget {budget} not in [1, {_CAP}]")
-        dev = pays.device
+        out = self.buffers(n, budget, pays.device)
+        self.launch(pays, lens, budget, *out)
+        return out
+
+    @staticmethod
+    def buffers(n: int, budget: int, dev: torch.device):
+        """(tiles (ceil(n / 2048), 2048 * budget), blen (n,)) int32 outputs
+        for n blocks."""
+        return (torch.empty((-(-n // _TILE), _TILE * budget),
+                            dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev))
+
+    def launch(self, pays, lens, budget, tiles, blen):
+        """The kernel alone on checked slots, budget and buffers()."""
         lib = BLOCK_PACK_LIB.build()
-        tile_words = _TILE * budget
-        n_tiles = -(-n // _TILE)
-        tiles = torch.empty((n_tiles, tile_words), dtype=torch.int32,
-                            device=dev)
-        blen = torch.empty(n, dtype=torch.int32, device=dev)
         check_launch(lib, lib.uhdr_pack_tiles(
             pays.data_ptr(), lens.data_ptr(), tiles.data_ptr(),
-            blen.data_ptr(), n, tile_words,
-            torch.cuda.current_stream(dev).cuda_stream), "uhdr_pack_tiles")
+            blen.data_ptr(), pays.shape[0], _TILE * budget,
+            torch.cuda.current_stream(pays.device).cuda_stream),
+            "uhdr_pack_tiles")
         self.launches += 1
-        return tiles, blen
 
 
 PACK_BLOCKS_KERNEL = _PackBlocksKernel()

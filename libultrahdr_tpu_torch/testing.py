@@ -16,7 +16,11 @@
   tables from the plain ops on their LUT grids, and its table formulation
   of the whole apply, for holding the kernel's design against
   ``apply_gainmap_plain``; ``apply_edge_inputs`` and
-  ``pack_worst_case_stream``, the two kernels' edge-case inputs;
+  ``pack_worst_case_stream``, the two kernels' edge-case inputs, and
+  ``synthetic_slots``, slot inputs of the block pack and the tile pack at
+  any block count;
+- ``launch_ms``, ``pack_kernel_ms``, ``slot_pack_kernel_ms``: a kernel's
+  time on the card without its wrapper's host work;
 - ``check_decoded_close``: the contract between two decodes of one file
   (RGBA1010102 or RGBAF16 output) by different programs or devices.
 """
@@ -412,24 +416,63 @@ def pack_worst_case_stream():
             torch.from_numpy(np.repeat(np.int32([1, 0]), 4)))
 
 
-def pack_kernel_ms(ins, reps: int = 20) -> float:
-    """Mean ms of the pack kernel alone on CUDA stream inputs `ins`, without
-    its wrapper's read of the total: an event pair around each launch, the
-    scratch zeroed before it outside the pair, and the card kept busy
-    (torch.cuda._sleep) until the launch is queued, so that the pair holds
-    no host time.  The first launch is a warm-up."""
-    bufs = pack_kernel.PACK_KERNEL.buffers(ins[0].shape[0], ins[0].device)
+def synthetic_slots(n: int, seed: int, dense=()):
+    """(pays, lens) (n, 72) int32 slot inputs of the block pack and the
+    tile pack at any block count, each payload below 2^length.  Most
+    blocks look like photographic content: a DC slot of 2-11 bits, each of
+    the next 15 slots of 2-16 bits with probability 1/2 and a 4-bit end
+    slot, about 3-4 words; 1 in 50 has no bits at all.  Blocks in the
+    [start, stop) ranges of `dense` fill 66 slots with 12-24 bits each
+    (about 33 words, at most 1,584 of the 1,728 bits a buffer holds)."""
+    rs = np.random.RandomState(seed)
+    lens = np.zeros((n, pack_kernel._SLOTS), np.int64)
+    lens[:, 0] = rs.randint(2, 12, n)
+    lens[:, 1:16] = np.where(rs.rand(n, 15) < 0.5,
+                             rs.randint(2, 17, (n, 15)), 0)
+    lens[:, 16] = 4
+    lens[rs.rand(n) < 0.02] = 0
+    for start, stop in dense:
+        lens[start:stop] = 0
+        lens[start:stop, :66] = rs.randint(12, 25, (stop - start, 66))
+    pays = (rs.random_sample(lens.shape) * (1 << lens)).astype(np.int64)
+    return (torch.from_numpy(pays.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+def launch_ms(launch, reps: int = 20, before=None) -> float:
+    """Mean ms of a kernel's launch() alone: an event pair around each
+    launch, before() (if given) run ahead of it outside the pair, and the
+    card kept busy (torch.cuda._sleep) until the launch is queued, so that
+    the pair holds no host time.  The first launch is a warm-up."""
     pairs = []
     for _ in range(reps + 1):
-        bufs[0].zero_()
+        if before is not None:
+            before()
         torch.cuda._sleep(200_000)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        pack_kernel.PACK_KERNEL.launch(*ins, *bufs)
+        launch()
         b.record()
         pairs.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs[1:]) / reps
+
+
+def pack_kernel_ms(ins, reps: int = 20) -> float:
+    """Mean ms of the pack kernel alone on CUDA stream inputs `ins`, without
+    its wrapper's read of the total (launch_ms; the scratch is zeroed
+    before each launch)."""
+    bufs = pack_kernel.PACK_KERNEL.buffers(ins[0].shape[0], ins[0].device)
+    return launch_ms(lambda: pack_kernel.PACK_KERNEL.launch(*ins, *bufs),
+                     reps, before=bufs[0].zero_)
+
+
+def slot_pack_kernel_ms(kern, pays, lens, *extra, reps: int = 20) -> float:
+    """Mean ms of the block pack (kern = PACK_BLOCKS_KERNEL, no extra) or
+    the tile pack (PACK_TILES_KERNEL, extra = (budget,)) alone on CUDA
+    slots, without its wrapper's checks and allocations (launch_ms)."""
+    bufs = kern.buffers(pays.shape[0], *extra, pays.device)
+    return launch_ms(lambda: kern.launch(pays, lens, *extra, *bufs), reps)
 
 
 def host_packed(packed) -> np.ndarray:

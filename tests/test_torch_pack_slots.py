@@ -305,3 +305,34 @@ def test_block_pack_dispatch_never_falls_back():
         port_pk.pack_blocks(*meta)
     with pytest.raises(port.UhdrError):
         port_pk.pack_tiles(*meta, BUDGET)
+
+
+def test_tile_pack_drops_only_the_overflowing_tiles_tail():
+    """Three tiles of testing.synthetic_slots in which only the middle one
+    overflows budget 16, its overflow beginning past its first 256 blocks
+    (in a later sub-tile of the CUDA kernel's split): pack_tiles_plain's
+    first and last tiles equal the compaction of pack_blocks_plain's
+    buffers (compact_blocks_t per tile), and the middle tile keeps exactly
+    its words below the budget."""
+    tile, tile_words = port_pk._TILE, port_pk._TILE * BUDGET
+    pays, lens = testing.synthetic_slots(3 * tile, seed=5,
+                                         dense=[(tile + 640, 2 * tile)])
+    lens64 = lens.to(torch.int64)
+    assert ((pays.to(torch.int64) & 0xFFFFFFFF) < (1 << lens64)).all()
+    tiles, blen = port_pk.pack_tiles_plain(pays, lens, BUDGET)
+    bb_t, blen_b = port_pk.pack_blocks_plain(pays, lens)
+    np.testing.assert_array_equal(blen.numpy(), blen_b.numpy())
+    np.testing.assert_array_equal(blen.numpy(), lens64.sum(dim=1).numpy())
+    assert int(blen.max()) <= port_pk._CAP * 32
+    live = port_pk.tile_live_words(blen).numpy()
+    assert live[0] <= tile_words < live[1] and live[2] <= tile_words
+    wlen = (blen.numpy()[tile:2 * tile].astype(np.int64) + 31) >> 5
+    assert np.argmax(np.cumsum(wlen) > tile_words) >= 256
+    with pytest.raises(port_de.PackOverflowError):
+        port_pk.check_tile_budgets(blen.numpy(), BUDGET)
+    for t in range(3):
+        part = slice(t * tile, (t + 1) * tile)
+        want = port_pk.compact_blocks_t(bb_t[:, part], blen[part], tile_words)
+        keep = min(int(live[t]), tile_words)
+        np.testing.assert_array_equal(tiles[t, :keep].numpy(),
+                                      want[:keep].numpy())

@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths at 3840x2160: the API-0 encode of P010,
-RGBA1010102 and RGBAF16 input through
+Drives the port's paths at 3840x2160: the API-0 encode of P010 (one
+request at a time and pipelined), RGBA1010102 and RGBAF16 input through
 ``libultrahdr_tpu_torch.UhdrEncoder(device="cuda")`` and of YUV444_10 input
 through ``JpegR(device="cuda").encode_api0``, the API-1 encode (raw HDR +
 raw SDR, both presets) and one API-2, API-3 and API-4 encode through
-``UhdrEncoder``, the JPEG_R decode of
-the P010 files through ``UhdrDecoder(device="cuda")``, then the slot-input
+``UhdrEncoder``, the JPEG_R decode of the P010 files through
+``UhdrDecoder(device="cuda")`` (HLG, PQ, LINEAR and SRGB) and through the
+batched and microbatched ``decode_to_device``, and the slot-input
 block-pack and tile-pack routes on the encode's scans, in phases that each
 print lines and let any failure propagate (exit code != 0).  Every path is
 driven with all kernel launch counts set to 0 just before it and read just
@@ -85,11 +86,28 @@ after:
    kernel equals its plain version at those shapes.  Prints each kernel's
    time alone and through its wrapper, and its plain version's (CUDA
    events), beside its bound;
-7. prints one JSON line with the kernel records (launches on the paths,
-   max abs error against the plain version, ms through the wrapper, the
-   launch alone as kernel_ms for the three pack kernels (null for the
-   apply, whose wrapper is one launch), plain ms, the bound), then the
-   device line.
+7. the pipelined encode (``fused.encode_api0_p010_pipelined``) of eight 4K
+   ``photo_p010`` images (eight seeds) per configuration, twice: one pack
+   launch an image, every file equal to the single-image encode of its
+   image on the card (which runs after it, one request at a time); prints
+   both runs' ms and MP/s beside the loop's;
+8. ``JpegR.decode_to_device_batch`` over phase 7's eight files, the
+   benchmark configuration's to HLG and the default's to LINEAR: one apply
+   launch a stream, every output bit-identical to the per-image route
+   (``decode_to_device(..., microbatch=False)``) on the card; prints the
+   batch's and the per-image loop's ms and MP/s;
+9. four ``decode_to_device`` callers on four threads, coalesced by the
+   microbatcher into one batch dispatch (counted; no retry), four apply
+   launches, each output bit-identical to the per-image route;
+10. one RGBA8888 / SRGB decode per configuration through ``UhdrDecoder`` on
+   the card (no kernel launch), its image and gain map equal to the same
+   decode on CPU tensors; prints its ms;
+11. prints one JSON line with the kernel records (launches on the paths,
+   the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
+   kernel's two ``pallas_call`` lines, max abs error against the plain
+   version, ms through the wrapper, the launch alone as kernel_ms for the
+   three pack kernels (null for the apply, whose wrapper is one launch),
+   plain ms, the bound), then the device line.
 
 It imports nothing of JAX and nothing of the JAX package; there is no CPU
 path.
@@ -104,6 +122,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -276,12 +295,15 @@ def main() -> int:
     def zero_counts():
         for kern in counted.values():
             kern.launches = 0
+        ak.APPLY_KERNEL.linear_launches = 0
 
     def read_counts(path: str, want: dict) -> dict:
         """The launch counts after driving `path`; raises unless they are
-        `want` (kernels not named there: 0)."""
+        `want` (kernels not named there: 0).  "apply_linear" counts the
+        apply kernel's LINEAR launches among its "apply_gainmap" ones."""
         got = {k: kern.launches for k, kern in counted.items()}
-        if got != {k: want.get(k, 0) for k in counted}:
+        got["apply_linear"] = ak.APPLY_KERNEL.linear_launches
+        if got != {k: want.get(k, 0) for k in got}:
             raise AssertionError(f"{path}: kernel launches {got}, expected "
                                  f"{want}")
         log(f"launches on the {path} path: {got}")
@@ -461,7 +483,7 @@ def main() -> int:
     configs = {"benchmark": dict(scale=4, multichannel=False),
                "default": dict(scale=1, multichannel=True)}
 
-    def encode(img, kw, what: str) -> bytes:
+    def encode(img, kw, what: str, phase: str = "4") -> bytes:
         """One request on the card through UhdrEncoder, or for YUV444_10
         (which the encoder API, like the reference's, does not take as an
         HDR intent) through JpegR.encode_api0; it must launch the pack
@@ -486,8 +508,8 @@ def main() -> int:
         if pk.PACK_KERNEL.launches != before + 1:
             raise AssertionError(f"{what} did not launch the pack kernel "
                                  "exactly once")
-        log(f"phase 4 encode {what}: {ms:.1f} ms, {w * h / ms / 1e3:.2f} "
-            f"MP/s, {len(data)} bytes | {card}")
+        log(f"phase {phase} encode {what}: {ms:.1f} ms, "
+            f"{w * h / ms / 1e3:.2f} MP/s, {len(data)} bytes | {card}")
         return data
 
     def check_encode(data, img, kw, block_buffers, planes, encode_fn, what,
@@ -929,7 +951,8 @@ def main() -> int:
             log(f"phase 5 decode {cfg} {ct.name}: {ms:.1f} ms, "
                 f"{w * h / ms / 1e3:.2f} MP/s, {img_out.w}x{img_out.h} "
                 f"{Fmt(img_out.fmt).name} | {card}")
-    apply_launches = read_counts("decode", {"apply_gainmap": 6})
+    apply_launches = read_counts("decode", {"apply_gainmap": 6,
+                                            "apply_linear": 2})
 
     apply_rows = {}
     for cfg, kw in configs.items():
@@ -1103,13 +1126,153 @@ def main() -> int:
                 f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / alone_ms:.0f}% of "
                 f"the kernel alone) | {card}")
 
+    # ---- phase 7: the pipelined encode ------------------------------------
+    # eight 4K images (photo_p010 at eight seeds) per configuration through
+    # fused.encode_api0_p010_pipelined, twice: one pack launch an image, and
+    # every file equal to the single-image encode of its image on the card
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        many = list(pool.map(lambda s: testing.photo_p010(w, h, seed=s),
+                             range(8)))
+    n_img = len(many)
+    piped, pipe_launches = {}, 0
+    for cfg, kw in configs.items():
+        jr = port.JpegR(device="cuda", map_dimension_scale_factor=kw["scale"],
+                        use_multi_channel_gainmap=kw["multichannel"])
+        runs = []
+        for run in range(2):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs_p = fused.encode_api0_p010_pipelined(jr, many, 95)
+            runs.append((time.perf_counter() - t0) * 1e3)
+            pipe_launches += read_counts(
+                f"pipelined encode {cfg} run {run}",
+                {"pack_scan": n_img})["pack_scan"]
+            if run and outs_p != piped[cfg]:
+                raise AssertionError(f"pipelined encode {cfg}: the two runs "
+                                     "differ")
+            piped[cfg] = outs_p
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = [encode(im, kw, f"P010 {cfg} seed {i} (one at a time)",
+                          "7") for i, im in enumerate(many)]
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        bad = [i for i, (a, b) in enumerate(zip(piped[cfg], singles))
+               if a != b]
+        if bad:
+            raise AssertionError(f"pipelined encode {cfg}: files {bad} != "
+                                 "the single-image encodes")
+        log(f"phase 7 pipelined encode {cfg}: {n_img} images in "
+            f"{runs[0]:.1f} / {runs[1]:.1f} ms, "
+            f"{n_img * w * h / runs[1] / 1e3:.2f} MP/s (second run), "
+            f"against {loop_ms:.1f} ms, {n_img * w * h / loop_ms / 1e3:.2f} "
+            f"MP/s one request at a time; every file == the single-image "
+            f"encode on the card | {card}")
+
+    # ---- phase 8: the batch decode ------------------------------------------
+    # decode_to_device_batch over phase 7's eight files (the benchmark
+    # configuration's to HLG, the default's to LINEAR): one apply launch a
+    # stream, every output bit-identical to the per-image route on the card
+    batch_launches, per_image = {}, {}
+    for cfg, ct in (("benchmark", CT.HLG), ("default", CT.LINEAR)):
+        jr = port.JpegR(device="cuda")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_b = jr.decode_to_device_batch(piped[cfg], ct)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        batch_launches[ct] = read_counts(
+            f"batch decode {cfg} {ct.name}",
+            {"apply_gainmap": n_img,
+             "apply_linear": n_img if ct == CT.LINEAR else 0})
+        t0 = time.perf_counter()
+        per_image[cfg, ct] = [jr.decode_to_device(d, ct, microbatch=False)[0]
+                              for d in piped[cfg]]
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        for i, ((got, _), want) in enumerate(zip(outs_b,
+                                                 per_image[cfg, ct])):
+            bit_identical(got, want, f"batch decode {cfg} {ct.name} "
+                          f"stream {i} vs the per-image route")
+        log(f"phase 8 batch decode {cfg} {ct.name}: {n_img} streams in "
+            f"{batch_ms:.1f} ms ({batch_ms / n_img:.1f} ms, "
+            f"{n_img * w * h / batch_ms / 1e3:.2f} MP/s an image), against "
+            f"{one_ms:.1f} ms ({one_ms / n_img:.1f} ms, "
+            f"{n_img * w * h / one_ms / 1e3:.2f} MP/s) one stream at a time; "
+            f"every output bit-identical to the per-image route | {card}")
+
+    # ---- phase 9: concurrent callers coalesced ----------------------------
+    # four decode_to_device callers on four threads; the microbatcher (its
+    # window long enough that the four meet, its batch four) dispatches one
+    # batch of four from the leader's thread
+    jr = port.JpegR(device="cuda")
+    jr._mb = jpegr._DeviceDecodeMicrobatcher(window_s=2.0, max_k=4)
+    callers = [None] * 4
+    meet = threading.Barrier(4)
+
+    def caller(i):
+        meet.wait()
+        callers[i] = jr.decode_to_device(piped["benchmark"][i], CT.HLG)
+
+    zero_counts()
+    threads = [threading.Thread(target=caller, args=(i,)) for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    mb_ms = (time.perf_counter() - t0) * 1e3
+    mb_launches = read_counts("4 concurrent decode_to_device callers",
+                              {"apply_gainmap": 4})
+    if None in callers or (jr._mb.batches, jr._mb.retries) != (1, 0):
+        raise AssertionError(f"concurrent callers: {jr._mb.batches} batch "
+                             f"dispatches, {jr._mb.retries} retries, not one "
+                             "batch and none")
+    for i, (got, _) in enumerate(callers):
+        bit_identical(got, per_image["benchmark", CT.HLG][i],
+                      f"caller {i} vs the per-image route")
+    log(f"phase 9 4 concurrent decode_to_device callers: one batch dispatch "
+        f"of 4, no retry, {mb_ms:.1f} ms, every output bit-identical to the "
+        f"per-image route | {card}")
+
+    # ---- phase 10: SRGB output --------------------------------------------
+    # one RGBA8888 / SRGB decode per configuration through UhdrDecoder on the
+    # card (no kernel on this path), equal to the same decode on CPU tensors
+    srgb = {}
+    for cfg in configs:
+        for d in ("cuda", "cpu"):
+            if d == "cuda":
+                zero_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec = port.UhdrDecoder(device=d)
+            dec.set_image(outputs[cfg][0])
+            dec.set_out_color_transfer(CT.SRGB)
+            dec.set_out_img_format(Fmt.RGBA8888)
+            srgb[d] = (dec.decode(), dec.get_decoded_gainmap_image())
+            ms = (time.perf_counter() - t0) * 1e3
+            if d == "cuda":
+                read_counts(f"SRGB decode {cfg}", {})
+                srgb_ms = ms
+        (img_g, gm_g), (img_c, gm_c) = srgb["cuda"], srgb["cpu"]
+        if not (np.array_equal(img_g.planes[0], img_c.planes[0])
+                and np.array_equal(gm_g.planes[0], gm_c.planes[0])
+                and img_g.planes[0].shape == (h, w)):
+            raise AssertionError(f"SRGB decode {cfg}: card != CPU")
+        log(f"phase 10 SRGB decode {cfg}: {srgb_ms:.1f} ms, "
+            f"{w * h / srgb_ms / 1e3:.2f} MP/s, RGBA8888 {img_g.w}x{img_g.h} "
+            f"and gain map {Fmt(gm_g.fmt).name} {gm_g.w}x{gm_g.h} == the "
+            f"decode on CPU tensors, byte for byte | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
 
-    # ---- phase 7: records -------------------------------------------------
+    # ---- phase 11: records ------------------------------------------------
     src, tpu = "libultrahdr_tpu_torch/csrc/", "libultrahdr_tpu/"
 
     def record(kname, source, replaces, launches, row, err):
@@ -1120,11 +1283,15 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
+    linear = apply_launches["apply_linear"] \
+        + batch_launches[CT.LINEAR]["apply_linear"]
+    hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
+        + sum(c["apply_gainmap"] for c in batch_launches.values()) - linear
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
                + api1_launches["pack_scan"]
-               + compressed_launches["pack_scan"],
+               + compressed_launches["pack_scan"] + pipe_launches,
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -1138,8 +1305,10 @@ def main() -> int:
                max(r["err"] for (k, _), r in route_rows.items()
                    if k == "pack_tiles")),
         record("apply_gainmap", "apply_kernel.cu", "ops/pallas_apply.py:177",
-               apply_launches["apply_gainmap"],
-               apply_rows["default", CT.HLG], apply_err)]}))
+               hlg_pq, apply_rows["default", CT.HLG], apply_err),
+        record("apply_gainmap_linear", "apply_kernel.cu",
+               "ops/pallas_apply.py:164", linear,
+               apply_rows["default", CT.LINEAR], apply_err)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -7,9 +7,12 @@ PyTorch and every TPU kernel on a ported path rewritten by hand for Hopper
 ``libultrahdr_tpu``; it keeps its own copy of the JAX package's native host
 C++ (``csrc/host/``, bound in ``jpeg/native.py``).  Ported so far: the
 API-0..4 encodes (``UhdrEncoder(device=...)``, ``JpegR.encode_api0`` ..
-``encode_api4``) and the fused JPEG_R decode to HLG, PQ or LINEAR output
-(``UhdrDecoder(device=...)``, ``JpegR.decode``,
-``JpegR.decode_to_device``); ROADMAP.md lists the slices still to come.
+``encode_api4``) and the throughput-mode API-0 P010 encode
+(``fused.encode_api0_p010_pipelined``); the fused JPEG_R decode to HLG, PQ
+or LINEAR output and the SRGB / RGBA8888 output (``UhdrDecoder(device=...)``,
+``JpegR.decode``), the device-resident decode per image, batched and
+microbatched (``JpegR.decode_to_device``, ``decode_to_device_batch``), and
+``is_uhdr_image``; ROADMAP.md lists the slices still to come.
 
 The tensor math runs in full float32: TF32 matrix products and convolutions
 are turned off here, because the JAX package runs its DCT at HIGHEST
@@ -28,4 +31,4 @@ from .types import (Codec, ColorGamut, ColorRange,  # noqa: E402,F401
                     ColorTransfer, CompressedImage, EncPreset,
                     GainMapMetadata, ImgFmt, ImgLabel, RawImage)
 from .api import UhdrDecoder, UhdrEncoder  # noqa: E402,F401
-from .jpegr import JpegR  # noqa: E402,F401
+from .jpegr import JpegR, is_uhdr_image  # noqa: E402,F401

@@ -7,8 +7,10 @@ Port of the encoder and the decoder of ``libultrahdr_tpu/api.py``
 ``encode()`` / ``decode()`` seals ("sails") the context
 (ultrahdrcommon.h:364), then getters, then ``reset()`` to reuse.  The
 encoder selects API 0-4 from the resources that are set, as the reference
-does.  Effects (``add_effect_*``), ``enable_gpu_acceleration`` and the
-SRGB/RGBA8888 decode output come with later slices (ROADMAP.md).
+does.  The decoder gives every output of the reference: HLG and PQ as
+RGBA1010102, LINEAR as RGBAF16 and SRGB as RGBA8888.  Effects
+(``add_effect_*``) and ``enable_gpu_acceleration`` come with a later slice
+(ROADMAP.md, Queue 1 item 11).
 
     enc = UhdrEncoder()                 # the card; device="cpu" asks for the CPU
     enc.set_raw_image(hdr, ImgLabel.HDR)

@@ -57,15 +57,36 @@ device runs, in eager PyTorch plus the hand-written apply kernel:
 
 The JAX ``_fused_decode`` is the jit wrapper of the same core; eager
 PyTorch needs none.
+
+**Throughput mode** (``encode_api0_p010_pipelined``, the JAX package's
+pipelined encode): up to ``PIPELINE_DEPTH`` images in flight, each on a CUDA
+stream of its own with its own pack buffers.  The caller's thread uploads
+an image from pinned memory and queues its device stages, its one pack
+launch and the downloads of its word total and block lengths, without
+waiting for the card; a small thread pool waits for each image, downloads
+its words and joins its scans, so the host joins of several images overlap
+one another and the card; the caller's thread writes the containers in
+order between its dispatches.  The JAX package's wire codecs and
+K-batch stitch served its tunnel link and are not ported.  The decode's
+batch (``JpegR.decode_to_device_batch``) shares ``prepare_device``,
+``PIPELINE_DEPTH`` and ``HOST_THREADS``.
 """
 
 from __future__ import annotations
+
+import collections
+import concurrent.futures
+import contextlib
+import dataclasses
+import os
+import threading
 
 import numpy as np
 import torch
 
 from .container import icc as icc_mod
 from .container import jpegr_container
+from .errors import invalid_param
 from .jpeg import device_entropy, native, pack_kernel
 from .jpeg.dct import forward_plane, inverse_plane
 from .jpeg.decoder import _ycc_to_rgb
@@ -75,7 +96,7 @@ from .jpeg.encoder import pad_edge as _pad_edge
 from .jpeg.encoder import rgb_to_ycbcr as _rgb_to_ycbcr
 from .jpeg.tables import STD_CHROMA_QUANT, STD_LUMA_QUANT, scaled_quant_table
 from .ops import apply as apply_ops
-from .ops import colors, gainmap as gainmap_ops, pixel
+from .ops import apply_kernel, colors, gainmap as gainmap_ops, pixel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, EncPreset,
                     GainMapMetadata, ImgFmt)
@@ -411,6 +432,17 @@ def upload_p010(img, device: torch.device):
     return upload_planes(_p010_planes(img), device)
 
 
+def _join_scans(words_h: np.ndarray, blen_h: np.ndarray, layouts):
+    """The host join of the base and the gain-map scan packed back to back
+    in one launch: words_h the downloaded u32 words, blen_h the block
+    lengths of both scans, layouts their ScanLayouts."""
+    bl, gl = layouts
+    n_base = bl.mcus_h * bl.bpr
+    blen_h = blen_h.astype(np.uint16)
+    return fetch_blocks_multi(
+        words_h, [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
+
+
 def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
                        base_sampling, icc_cg: ColorGamut, scale: int,
                        metadata: GainMapMetadata, exif: bytes | None,
@@ -418,12 +450,9 @@ def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
     """The back half of a fused encode: one `pack` of both scans on the
     device, one download, the host join of each scan and the container."""
     words, blen = _pack_scans(scans, pack)
-    words_h = words.cpu().numpy().view(np.uint32)
-    blen_h = blen.cpu().numpy().astype(np.uint16)
-    (_, bl), (_, gl) = scans
-    n_base = bl.mcus_h * bl.bpr
-    base_scan, gm_scan = fetch_blocks_multi(
-        words_h, [(blen_h[:n_base], bl.bpr), (blen_h[n_base:], gl.bpr)])
+    base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
+                                     blen.cpu().numpy(),
+                                     [lay for _, lay in scans])
     return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                                icc_cg, scale, gm_scan, metadata, exif, gm_ct,
                                gm_cg)
@@ -475,6 +504,226 @@ def encode_api0_yuv444_10_fused(jr, img, quality: int, exif: bytes | None,
         jr, img, quality, exif, _api0_yuv444_10_block_buffers,
         [np.asarray(p, np.uint16) for p in img.planes[:3]], _SAMPLING_444,
         pack, rng=ColorRange(img.range))
+
+
+# ---------------------------------------------------------------------------
+# throughput mode
+
+# images in flight on the card (the pipelined encode) or streams of a decode
+# batch: one CUDA stream each, and for the encode one set of pack buffers
+# (room for CAP_WORDS words a block: 145 MB for a 4K default-configuration
+# image)
+PIPELINE_DEPTH = 4
+# threads of the decode batch's host Huffman decodes: the host's cores but
+# one, which the dispatching thread needs
+HOST_THREADS = max(1, min(8, (os.cpu_count() or 2) - 1))
+_PREPARED: set = set()
+_PREPARE_LOCK = threading.Lock()
+_STREAMS: dict = {}
+
+
+def sleeping_event() -> torch.cuda.Event:
+    """An event whose synchronize() sleeps until the card reaches it, so
+    that waiting pool threads leave the host's cores to the dispatching
+    thread (a default event's spins a core: CUDA's default on a host with
+    more cores than contexts)."""
+    return torch.cuda.Event(blocking=True)
+
+
+def side_streams(dev: torch.device) -> list:
+    """PIPELINE_DEPTH CUDA streams of `dev`, the same for every call: the
+    caching allocator keeps freed blocks per stream, so fresh streams
+    would allocate every image's buffers anew."""
+    with _PREPARE_LOCK:
+        if dev not in _STREAMS:
+            _STREAMS[dev] = [torch.cuda.Stream(dev)
+                             for _ in range(PIPELINE_DEPTH)]
+        return _STREAMS[dev]
+
+
+def prepare_device(dev: torch.device):
+    """Build the kernels and upload their per-device tables on the default
+    stream, then wait for the card once.  A table is uploaded on whatever
+    stream is current at its first use, and a launch on another stream
+    would not be ordered after that upload."""
+    if dev.type != "cuda":
+        return
+    with _PREPARE_LOCK:
+        if dev in _PREPARED:
+            return
+        native.get_lib()
+        with torch.cuda.device(dev), \
+                torch.cuda.stream(torch.cuda.default_stream(dev)):
+            pack_kernel.PACK_KERNEL.setup(dev)
+            apply_kernel.APPLY_KERNEL.tables(dev)
+        torch.cuda.synchronize(dev)
+        _PREPARED.add(dev)
+
+
+class _Slot:
+    """One image in flight: its CUDA stream, the pack kernel's buffers and
+    pinned host buffers for the downloads, all reused by the slot's next
+    image and by later calls (grown when an image needs more, never
+    shrunk).  The slot's next image is dispatched only after this one's
+    words are joined, so a launch never overwrites words still to be
+    read."""
+
+    def __init__(self, dev: torch.device, stream):
+        self.dev = dev
+        self.stream = stream
+        self.n = 0
+        self.total_h = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+        self.words_h = torch.empty(0, dtype=torch.int32, pin_memory=True)
+
+    def pack(self, stream, dc_diff, is_luma):
+        """One launch of the pack kernel into the slot's buffers on the
+        slot's stream, then non-blocking copies of the word total and the
+        block lengths into pinned memory.  Returns (the words' room, the
+        pinned block lengths)."""
+        kern = pack_kernel.PACK_KERNEL
+        kern.check(stream, dc_diff, is_luma)
+        n = stream.shape[0]
+        if n > self.n:
+            self.scratch, self.blen, self.words = kern.buffers(n, self.dev)
+            self.blen_h = torch.empty(n, dtype=torch.int32, pin_memory=True)
+            self.n = n
+        scratch = self.scratch[:2 + -(-n // pack_kernel._SCAN_TILE)]
+        scratch.zero_()
+        kern.launch(stream, dc_diff, is_luma, scratch, self.blen[:n],
+                    self.words)
+        self.total_h.copy_(scratch[1:2], non_blocking=True)
+        self.blen_h[:n].copy_(self.blen[:n], non_blocking=True)
+        return self.words, self.blen_h[:n]
+
+    def download(self, words: torch.Tensor, total: int) -> np.ndarray:
+        """words[:total] into the slot's pinned buffer on its stream (the
+        slot's own, so the copy waits for nothing else); waits for it."""
+        if self.words_h.numel() < total:
+            self.words_h = torch.empty(total + total // 4,
+                                       dtype=torch.int32, pin_memory=True)
+        with torch.cuda.stream(self.stream):
+            self.words_h[:total].copy_(words[:total], non_blocking=True)
+            done = sleeping_event()
+            done.record(self.stream)
+        done.synchronize()
+        return self.words_h[:total].numpy().view(np.uint32)
+
+
+_SLOTS: dict = {}
+# one pipelined encode at a time shares a device's slots
+_SLOTS_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class _EncodeJob:
+    """What a dispatched image leaves for its join and its container."""
+    img: object
+    scale: int
+    metadata: GainMapMetadata
+    layouts: list
+    words: torch.Tensor        # on the card: the slot's room
+    blen: torch.Tensor         # on the card: pinned, filled at `event`
+    slot: _Slot | None = None
+    event: torch.cuda.Event | None = None
+
+
+def _dispatch_p010(jr, img, quality: int, slot: _Slot | None) -> _EncodeJob:
+    """The device half of one pipelined image: upload, steps 1-4 and one
+    pack launch, queued on the slot's stream without waiting for the card
+    (with no slot, on the CPU: run in order)."""
+    cg, ct = ColorGamut(img.cg), ColorTransfer(img.ct)
+    scale = _resolve_scale(jr, img)
+    use_base_cg = _use_base_cg(ColorGamut.DISPLAY_P3, cg, jr.write_xmp)
+    with torch.cuda.stream(slot.stream) if slot \
+            else contextlib.nullcontext():
+        scans = _api0_p010_block_buffers(
+            *upload_p010(img, jr.device), cg=cg, ct=ct,
+            rng=ColorRange(img.range), scale=scale,
+            multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
+            quality=int(quality), map_quality=jr.map_compress_quality,
+            use_base_cg=use_base_cg)
+        words, blen = _pack_scans(
+            scans, slot.pack if slot else pack_kernel.pack_scan)
+        event = None
+        if slot:
+            event = sleeping_event()
+            event.record(slot.stream)
+    return _EncodeJob(img, scale, _onepass_metadata(jr, ct, use_base_cg),
+                      [lay for _, lay in scans], words, blen, slot, event)
+
+
+def _join_p010(job: _EncodeJob) -> list[bytes]:
+    """Wait for one image's pack, download its words and join both scans:
+    host work that holds the GIL only briefly (the waits, the copy and the
+    C++ joiner release it)."""
+    if job.slot is None:
+        words_h = job.words.numpy().view(np.uint32)
+    else:
+        job.event.synchronize()
+        words_h = job.slot.download(job.words, int(job.slot.total_h[0]))
+    return _join_scans(words_h, job.blen.numpy(), job.layouts)
+
+
+def _container_p010(jr, job: _EncodeJob, scans, quality: int,
+                    exif: bytes | None) -> bytes:
+    """The JPEG headers and the container of one pipelined image."""
+    img = job.img
+    return _assemble_container(
+        jr, img.w, img.h, quality, scans[0], _SAMPLING_420,
+        ColorGamut.DISPLAY_P3, job.scale, scans[1], job.metadata, exif,
+        ColorTransfer(img.ct), ColorGamut(img.cg))
+
+
+def encode_api0_p010_pipelined(jr, imgs, quality: int = 95,
+                               exif: bytes | None = None) -> list[bytes]:
+    """Throughput-mode API-0 encode of many P010 images on `jr.device`;
+    the files in input order, each equal to ``jr.encode_api0`` of its
+    image byte for byte.
+
+    On the card image i runs on slot i % PIPELINE_DEPTH.  The caller's
+    thread dispatches it (``_dispatch_p010``: every launch stays on this
+    thread) once the slot's previous image is joined, and writes the
+    containers in order (``_container_p010``); a pool of PIPELINE_DEPTH
+    threads waits for each image, downloads and joins it
+    (``_join_p010``).  The Python-heavy stages share one thread, so the
+    pool's threads, which mostly wait or run C++, do not hold up the
+    dispatch's many short releases of the GIL.  Images of any size, gamut,
+    transfer or range share the pipeline.  An error propagates; nothing
+    falls back.  On the CPU the same stages run in order, with no streams,
+    events or pinned memory."""
+    imgs = list(imgs)
+    for img in imgs:
+        if ImgFmt(img.fmt) != ImgFmt.P010:
+            raise invalid_param(f"the pipelined encode takes P010 input, "
+                                f"got {ImgFmt(img.fmt)}")
+    if jr.device.type != "cuda":
+        outs = []
+        for img in imgs:
+            job = _dispatch_p010(jr, img, quality, None)
+            outs.append(_container_p010(jr, job, _join_p010(job), quality,
+                                        exif))
+        return outs
+    dev = jr.device
+    prepare_device(dev)
+    outs, pending = [], collections.deque()
+
+    def finish_oldest():
+        job, joined = pending.popleft()
+        outs.append(_container_p010(jr, job, joined.result(), quality, exif))
+
+    with _SLOTS_LOCK:
+        if dev not in _SLOTS:
+            _SLOTS[dev] = [_Slot(dev, s) for s in side_streams(dev)]
+        slots = _SLOTS[dev][:max(1, min(PIPELINE_DEPTH, len(imgs)))]
+        with concurrent.futures.ThreadPoolExecutor(len(slots)) as pool:
+            for i, img in enumerate(imgs):
+                if len(pending) == len(slots):   # frees slot i % len(slots)
+                    finish_oldest()
+                job = _dispatch_p010(jr, img, quality, slots[i % len(slots)])
+                pending.append((job, pool.submit(_join_p010, job)))
+            while pending:
+                finish_oldest()
+    return outs
 
 
 API1_HDR_FORMATS = (ImgFmt.P010, ImgFmt.RGBA1010102, ImgFmt.RGBAF16)
@@ -554,8 +803,10 @@ DECODE_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
 
 
 def upload_coeff_planes(planes, device: torch.device):
-    """Raw upload of (bh, bw, 64) int16 coefficient planes, one copy each."""
-    return [torch.from_numpy(np.ascontiguousarray(c, np.int16)).to(device)
+    """Raw upload of (bh, bw, 64) int16 coefficient planes (host arrays or
+    pinned tensors), one transfer each."""
+    return [pixel.to_device(c if isinstance(c, torch.Tensor)
+                            else np.asarray(c, np.int16), device)
             for c in planes]
 
 

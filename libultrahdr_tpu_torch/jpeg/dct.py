@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops.pixel import to_device
 from .tables import INV_ZIGZAG, ZIGZAG_ORDER
 
 
@@ -48,14 +49,12 @@ def forward_plane(plane_u8: torch.Tensor, qtable_natural) -> torch.Tensor:
     x = plane_u8.to(torch.float32) - 128.0
     h, w = x.shape
     blocks = x.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
-    d = torch.from_numpy(dct_matrix()).to(dev)
+    d = to_device(dct_matrix(), dev)
     coeffs = torch.matmul(torch.matmul(d, blocks), d.T)
-    q = torch.as_tensor(np.asarray(qtable_natural, np.float32).reshape(8, 8),
-                        device=dev)
+    q = to_device(np.asarray(qtable_natural, np.float32).reshape(8, 8), dev)
     quant = torch.round(coeffs / q).to(torch.int16)
     flat = quant.reshape(h // 8, w // 8, 64)
-    return flat[..., torch.as_tensor(ZIGZAG_ORDER, dtype=torch.long,
-                                     device=dev)]
+    return flat[..., to_device(np.asarray(ZIGZAG_ORDER, np.int64), dev)]
 
 
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:
@@ -144,9 +143,8 @@ def inverse_plane(zz_coeffs: torch.Tensor, qtable_natural,
     """(bh, bw, 64) int16 zigzag coefficients -> uint8 (out_h, out_w) plane,
     bit-identical to libjpeg's islow decode."""
     dev = zz_coeffs.device
-    inv = torch.as_tensor(INV_ZIGZAG, dtype=torch.long, device=dev)
-    q = torch.as_tensor(np.asarray(qtable_natural, np.int32).reshape(64),
-                        device=dev)
+    inv = to_device(np.asarray(INV_ZIGZAG, np.int64), dev)
+    q = to_device(np.asarray(qtable_natural, np.int32).reshape(64), dev)
     deq = zz_coeffs[..., inv].to(torch.int32) * q
     spatial = idct8x8_islow(deq.reshape(*deq.shape[:-1], 8, 8)) + 128
     plane = unblockify(range_limit(spatial).to(torch.uint8))

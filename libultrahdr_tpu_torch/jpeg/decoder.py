@@ -12,7 +12,9 @@ Port of ``libultrahdr_tpu/jpeg/decoder.py``:
 The Huffman decode itself is the host native C++ (``native.decode_scan``,
 driven by ``decode_coefficients``); the IDCT is ``dct.inverse_plane``.
 ``decode_to_planes`` (baseline only) chains the two: the host Huffman
-decode, a raw upload and the bit-exact IDCT on the device.
+decode, a raw upload and the bit-exact IDCT on the device; ``decode_to_rgb``
+adds ``_ycc_to_rgb`` (the SRGB output's and the 3-channel gain map's RGB
+decode), and ``decode_to_rgba`` packs that as RGBA8888 for one download.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..errors import UhdrError, UhdrErrorCode, unsupported
+from ..ops.pixel import to_device
 from ..types import ImgFmt
 from . import native
 from .dct import inverse_plane
@@ -324,9 +327,8 @@ def decode_to_planes(data: bytes, info: JpegInfo | None,
         # stored plane dims: ceil(w*h_i/hmax) x ceil(h*v_i/vmax)
         pw = -(-info.width * comp.h // hmax)
         ph = -(-info.height * comp.v // vmax)
-        planes.append(inverse_plane(
-            torch.from_numpy(np.ascontiguousarray(c, np.int16)).to(device),
-            q, ph, pw))
+        planes.append(inverse_plane(to_device(c.astype(np.int16, copy=False),
+                                              device), q, ph, pw))
     return planes, fmt
 
 
@@ -396,10 +398,43 @@ def _ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     yi = y[:h, :w].to(torch.int32)
     cbu = _upsample(cb.to(torch.int32), fmt_key)[:h, :w].to(torch.int64)
     cru = _upsample(cr.to(torch.int32), fmt_key)[:h, :w].to(torch.int64)
-    lut = {name: torch.from_numpy(t).to(dev) for name, t in (
+    lut = {name: to_device(t, dev) for name, t in (
         ("cr_r", YCC_CR_R), ("cb_b", YCC_CB_B), ("cr_g", YCC_CR_G),
         ("cb_g", YCC_CB_G))}
     r = yi + lut["cr_r"][cru]
     g = yi + ((lut["cb_g"][cbu] + lut["cr_g"][cru]) >> 16)
     b = yi + lut["cb_b"][cbu]
     return torch.clamp(torch.stack([r, g, b]), 0, 255).to(torch.uint8)
+
+
+# (h, v) sampling of a decoded base -> the key of _upsample
+_FMT_KEY = {ImgFmt.YUV444: "444", ImgFmt.YUV440: "440", ImgFmt.YUV422: "422",
+            ImgFmt.YUV420: "420", ImgFmt.YUV411: "411", ImgFmt.YUV410: "410"}
+# an opaque alpha byte in the int32 carrier of a u32 RGBA8888 pattern
+_ALPHA_8888 = -(1 << 24)
+
+
+def decode_to_rgb(data: bytes, info: JpegInfo | None,
+                  device: torch.device) -> torch.Tensor:
+    """Decode a baseline JPEG to its RGB image on `device`
+    (DECODE_TO_RGB_CS mode): (3, H, W) uint8 through ``decode_to_planes``
+    and ``_ycc_to_rgb``; a YUV400 image gives its (1, H, W) luma."""
+    if info is None:
+        info = parse_jpeg(data)
+    planes, fmt = decode_to_planes(data, info, device)
+    if fmt == ImgFmt.YUV400:
+        return planes[0][None]
+    return _ycc_to_rgb(planes[0], planes[1], planes[2], _FMT_KEY[fmt],
+                       info.height, info.width)
+
+
+def decode_to_rgba(data: bytes, info: JpegInfo | None,
+                   device: torch.device) -> np.ndarray:
+    """Decode to packed RGBA8888 (H, W) uint32 in host memory, R in bits
+    7:0 and alpha 255 (libjpeg-turbo's JCS_EXT_RGBA): ``decode_to_rgb`` on
+    `device`, packed there, one download.  A YUV400 image packs its luma
+    into R, G and B."""
+    rgb = decode_to_rgb(data, info, device).to(torch.int32)
+    r, g, b = (rgb[0], rgb[0], rgb[0]) if rgb.shape[0] == 1 else rgb
+    packed = r | (g << 8) | (b << 16) | _ALPHA_8888
+    return packed.cpu().numpy().view(np.uint32)

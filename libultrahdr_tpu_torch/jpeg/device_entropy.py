@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.pixel import to_device
 from .tables import AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA
 
 
@@ -84,8 +85,7 @@ def stream_inputs(coeff_planes, layout: ScanLayout):
         prev = torch.cat([torch.zeros_like(dcs[:, :1]), dcs[:, :-1]], dim=1)
         comp_diffs.append((dcs - prev).reshape(mh, mw, vs * hs))
     dc_diff = torch.cat(comp_diffs, dim=2).reshape(-1)
-    is_luma = torch.from_numpy(
-        np.tile(layout.is_luma.astype(np.int32), mh)).to(dev)
+    is_luma = to_device(np.tile(layout.is_luma.astype(np.int32), mh), dev)
     return stream.reshape(-1, 64).contiguous(), dc_diff.contiguous(), is_luma
 
 
@@ -146,7 +146,7 @@ def block_slots(stream: torch.Tensor, dc_diff: torch.Tensor,
     ZRL or a code, never both), EOB] of (payload, length), both (n, 65)
     int64; an inactive slot is (0, 0) and a payload is below 2^length."""
     dev = stream.device
-    lut = torch.from_numpy(packed_luts().astype(np.int64)).to(dev)
+    lut = to_device(packed_luts().astype(np.int64), dev)
     code, length = lut >> 5, lut & 31
     chroma = (is_luma == 0).to(torch.int64)              # (n,) table row
     dc_base = chroma * 16

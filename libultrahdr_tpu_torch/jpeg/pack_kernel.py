@@ -134,8 +134,24 @@ class _PackKernel:
                 packed_luts().view(np.int32)).to(dev)
         return self._luts[dev]
 
+    def setup(self, dev: torch.device):
+        """Build the kernel and upload its table to `dev` on the current
+        stream (both happen at first use otherwise)."""
+        PACK_LIB.build()
+        self._lut(dev)
+
     def __call__(self, stream: torch.Tensor, dc_diff: torch.Tensor,
                  is_luma: torch.Tensor):
+        self.check(stream, dc_diff, is_luma)
+        out = self.buffers(stream.shape[0], stream.device)
+        self.launch(stream, dc_diff, is_luma, *out)
+        scratch, blen, words = out
+        return words[:int(scratch[1])], blen
+
+    @staticmethod
+    def check(stream: torch.Tensor, dc_diff: torch.Tensor,
+              is_luma: torch.Tensor):
+        """Raise unless the inputs are what the kernel reads."""
         dev = stream.device
         n = stream.shape[0]
         if dev.type != "cuda":
@@ -153,10 +169,6 @@ class _PackKernel:
         if any(t.data_ptr() % 16 for t in (stream, dc_diff, is_luma)):
             raise ValueError("pack kernel: stream, dc_diff and is_luma must "
                              "be 16-byte aligned")
-        out = self.buffers(n, dev)
-        self.launch(stream, dc_diff, is_luma, *out)
-        scratch, blen, words = out
-        return words[:int(scratch[1])], blen
 
     @staticmethod
     def buffers(n: int, dev: torch.device):

@@ -17,7 +17,8 @@ RGBAF16), in four pieces:
   into ``_build/``, builds the kernel's request-independent tables once per
   device (``APPLY_KERNEL.tables``, set-up), launches it on PyTorch's current
   stream, raises on a refused launch, and counts its launches in
-  ``APPLY_KERNEL.launches``;
+  ``APPLY_KERNEL.launches`` (those of the LINEAR branch, the TPU kernel's
+  other ``pallas_call``, also in ``APPLY_KERNEL.linear_launches``);
 - ``apply_gainmap``: the dispatcher.  A CPU tensor goes to the plain
   version, a CUDA tensor to the kernel; anything else raises.  Nothing
   falls back: a failed build or launch propagates.
@@ -148,6 +149,7 @@ class _ApplyKernel:
 
     def __init__(self):
         self.launches = 0
+        self.linear_launches = 0
         self._tables: dict[torch.device, dict[str, torch.Tensor]] = {}
 
     def tables(self, dev: torch.device) -> dict[str, torch.Tensor]:
@@ -216,6 +218,7 @@ class _ApplyKernel:
             tables["srgb"].data_ptr(), code.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "uhdr_apply_gainmap")
         self.launches += 1
+        self.linear_launches += int(out_ct == ColorTransfer.LINEAR)
         return out
 
 

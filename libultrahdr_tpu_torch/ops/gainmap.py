@@ -105,14 +105,14 @@ def encode_gain(sdr_nits: torch.Tensor, hdr_nits: torch.Tensor,
     """encodeGain (gainmapmath.cpp:753-771): u8 = trunc(pow(norm, gamma) *
     255), norm the log2 gain between the boosts."""
     f32 = dict(dtype=torch.float32, device=sdr_nits.device)
-    lo_b = torch.tensor(min_boost, **f32)
-    hi_b = torch.tensor(max_boost, **f32)
+    lo_b = torch.full((), min_boost, **f32)
+    hi_b = torch.full((), max_boost, **f32)
     gain = torch.where(sdr_nits > 0.0,
                        hdr_nits / torch.clamp(sdr_nits, min=1e-37), 1.0)
     gain = torch.minimum(torch.maximum(gain, lo_b), hi_b)
     log2min, log2max = torch.log2(lo_b), torch.log2(hi_b)
     norm = (torch.log2(gain) - log2min) / (log2max - log2min)
-    norm_g = torch.pow(norm, torch.tensor(gamma, **f32))
+    norm_g = torch.pow(norm, torch.full((), gamma, **f32))
     return torch.clamp(norm_g * 255.0, 0.0, 255.0).to(torch.uint8)
 
 
@@ -149,8 +149,8 @@ def affine_map_gain(gainlog2: torch.Tensor, mingainlog2: torch.Tensor,
     with +0.5 rounding."""
     mapped = (gainlog2 - mingainlog2) / (maxgainlog2 - mingainlog2)
     if np.float32(gamma) != 1.0:
-        mapped = torch.pow(torch.clamp(mapped, min=0.0), torch.tensor(
-            gamma, dtype=torch.float32, device=mapped.device))
+        mapped = torch.pow(torch.clamp(mapped, min=0.0), torch.full(
+            (), gamma, dtype=torch.float32, device=mapped.device))
     return torch.clamp(mapped * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
@@ -204,6 +204,6 @@ def encode_gainmap_twopass(gains: torch.Tensor, gmin: np.ndarray,
     c = gains.shape[0]
 
     def bound(b):
-        return torch.from_numpy(np.asarray(b, np.float32)[:c].reshape(
-            c, 1, 1)).to(gains.device)
+        return pixel.to_device(np.asarray(b, np.float32)[:c].reshape(
+            c, 1, 1), gains.device)
     return affine_map_gain(gains, bound(gmin), bound(gmax), gamma)

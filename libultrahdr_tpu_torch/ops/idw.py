@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from . import pixel
+
 
 @functools.lru_cache(maxsize=32)
 def shepards_weight_tables(k: int) -> np.ndarray:
@@ -74,7 +76,7 @@ def _idw_core(gainmap: torch.Tensor, down: torch.Tensor, k: int,
               _replicate(_shift_clamp(gainmap, 2), k, out_h, out_w),
               _replicate(_shift_clamp(down, 2), k, out_h, out_w))
 
-    tables = torch.from_numpy(shepards_weight_tables(k)).to(dev)
+    tables = pixel.to_device(shepards_weight_tables(k), dev)
     # edge masks: x_lower == x_upper when x//k >= mw-1 (same for y)
     cc = ((torch.arange(out_w, device=dev) // k) >= (mw - 1))[None, :]
 

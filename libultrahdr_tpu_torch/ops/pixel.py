@@ -26,18 +26,51 @@ from .colors import sanitize_pixel
 _CARRIER = {2: np.int16, 4: np.int32}
 
 
-def plane_tensor(p, device: torch.device) -> torch.Tensor:
-    """A host plane (numpy) or a tensor on `device`, one copy at most:
-    16- and 32-bit samples travel as int16 / int32 views of their
-    patterns, 8-bit ones as uint8."""
-    if isinstance(p, torch.Tensor):
-        return p.to(device)
-    a = np.ascontiguousarray(p)
-    if not a.flags.writeable:         # torch shares a CPU array's memory
+def host_tensor(a) -> torch.Tensor:
+    """A contiguous CPU tensor sharing a numpy array's memory (a copy when
+    the array is read-only, which torch cannot share)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
         a = a.copy()
+    return torch.from_numpy(a)
+
+
+def pinned(x) -> torch.Tensor:
+    """A copy of a host array or CPU tensor in pinned memory (PyTorch's
+    caching host allocator), made by one numpy copy on the calling thread:
+    ``Tensor.pin_memory()`` copies on PyTorch's CPU thread pool, which
+    stalls when the other host threads of a pipeline hold the cores
+    (PERF.md, PR 7)."""
+    t = x if isinstance(x, torch.Tensor) else host_tensor(x)
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    np.copyto(out.numpy(), t.numpy())
+    return out
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on `device`.  To the card it travels
+    through pinned memory as a copy queued on the current stream, so the
+    host does not wait for the card (a pageable copy would); the caching
+    host allocator keeps the pinned block until that copy has run.  An
+    already pinned tensor is not copied again on the host."""
+    t = x if isinstance(x, torch.Tensor) else host_tensor(x)
+    if torch.device(device).type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    if not t.is_pinned():
+        t = pinned(t)
+    return t.to(device, non_blocking=True)
+
+
+def plane_tensor(p, device: torch.device) -> torch.Tensor:
+    """A host plane (numpy) or a tensor on `device`, one transfer at most
+    (to_device): 16- and 32-bit samples travel as int16 / int32 views of
+    their patterns, 8-bit ones as uint8."""
+    if isinstance(p, torch.Tensor):
+        return to_device(p, device)
+    a = np.ascontiguousarray(p)
     if a.dtype.itemsize in _CARRIER:
         a = a.view(_CARRIER[a.dtype.itemsize])
-    return torch.from_numpy(a).to(device)
+    return to_device(a, device)
 
 
 def _replicate_chroma(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:

@@ -318,15 +318,13 @@ def test_unsupported_decode_shapes_raise():
             port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
         assert "ROADMAP" in str(e.value)
 
-    dec = port.UhdrDecoder(device="cpu")
-    dec.set_image(data)
-    dec.set_out_img_format(port.ImgFmt.RGBA8888)
-    dec.set_out_color_transfer(port.ColorTransfer.SRGB)
-    unsupported(dec.decode)
     jr = port.JpegR(device="cpu")
-    unsupported(lambda: jr.decode(data, port.ColorTransfer.SRGB))
     unsupported(lambda: jr.decode(data, use_fused=False))
-    unsupported(lambda: jr.decode_to_device(data, port.ColorTransfer.SRGB))
+    # a device-resident decode gives HDR outputs only, as in the JAX
+    # package (SRGB output is JpegR.decode's, tests/test_torch_decode_batch)
+    with pytest.raises(port.UhdrError) as e:
+        jr.decode_to_device(data, port.ColorTransfer.SRGB)
+    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
     # a progressive base (SOF2 in place of SOF0)
     primary, _ = jr.extract_primary_and_gainmap(data)
     sof = data.index(b"\xff\xc0")

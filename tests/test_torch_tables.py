@@ -238,7 +238,8 @@ def test_no_jax_import_in_port_sources():
     keeps its own copies, the host C++ included); no port C++/CUDA source
     includes one."""
     scripts = [REPO / n for n in ("chip_smoke.py", "profile_decode.py",
-                                  "profile_encode.py", "profile_variants.py")]
+                                  "profile_encode.py", "profile_throughput.py",
+                                  "profile_variants.py")]
     for f in [*(REPO / "libultrahdr_tpu_torch").rglob("*.py"), *scripts]:
         text = f.read_text()
         for line in text.splitlines():

@@ -10,8 +10,11 @@ through ``JpegR(device="cuda").encode_api0``, the API-1 encode (raw HDR +
 raw SDR, both presets) and one API-2, API-3 and API-4 encode through
 ``UhdrEncoder``, the JPEG_R decode of the P010 files through
 ``UhdrDecoder(device="cuda")`` (HLG, PQ, LINEAR and SRGB) and through the
-batched and microbatched ``decode_to_device``, and the slot-input
-block-pack and tile-pack routes on the encode's scans, in phases that each
+batched and microbatched ``decode_to_device``, the general decode path
+(fractional and resized gain maps, a grayscale and a progressive base,
+``use_fused=False``), the host decode engine ``JpegR.decode_host``, and
+the slot-input block-pack and tile-pack routes on the encode's scans, in
+phases that each
 print lines and let any failure propagate (exit code != 0).  Every path is
 driven with all kernel launch counts set to 0 just before it and read just
 after:
@@ -102,7 +105,31 @@ after:
 10. one RGBA8888 / SRGB decode per configuration through ``UhdrDecoder`` on
    the card (no kernel launch), its image and gain map equal to the same
    decode on CPU tensors; prints its ms;
-11. prints one JSON line with the kernel records (launches on the paths,
+12. the general decode path at 4K, each request through
+   ``UhdrDecoder(device="cuda")`` (or ``JpegR.decode(use_fused=False)``):
+   API-0 files at map scale 7 (a 548x308 map, factor 7.007: the float-
+   factor IDW) with 1 and 3 channels to HLG and LINEAR; an API-4 file of
+   the benchmark file's base and its gain map cropped to 960x480 (the
+   host bicubic resize) to PQ; an API-4 file with a YUV400 base (the
+   base's luma) to HLG; the committed progressive fixture
+   (``tests/data/progressive_jpegr_3840x2160.jpg``) to HLG and SRGB;
+   phase 4's two files with ``use_fused=False`` to HLG.  Each HDR request
+   launches the apply kernel exactly once (SRGB: never) and is
+   bit-identical to the plain apply on the card run on its own stage
+   outputs (``JpegR._general_planes`` and ``_apply_inputs``); the
+   fixture's planes on the card equal ``inverse_plane`` on CPU tensors and
+   its HLG decode the CPU port's within ``check_decoded_close``; a small
+   image of each other kind decoded on the card is within
+   ``check_decoded_close`` of the CPU port's.  Prints each request's ms
+   and MP/s, its host stages timed alone (parse, Huffman, resize), and the
+   apply kernel's and plain version's time on the float fractional gain
+   and on the resized map;
+13. ``JpegR.decode_host`` of phase 4's two files to HLG and LINEAR on the
+   host, twice, beside the card's ``UhdrDecoder`` decode of the same file
+   (one apply launch): >= 55 dB a channel against it, the JAX package's
+   host-vs-device gate; prints both times; and ``UhdrDecoder`` with
+   ``UHDR_TPU_DECODE_ENGINE=host`` equals ``decode_host`` with no launch;
+11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
    version, ms through the wrapper, the launch alone as kernel_ms for the
@@ -118,6 +145,7 @@ from __future__ import annotations
 import concurrent.futures
 import itertools
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -258,6 +286,7 @@ def main() -> int:
     import torch
 
     # ---- phase 1: the card ----------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on a GPU")
@@ -1266,6 +1295,334 @@ def main() -> int:
             f"and gain map {Fmt(gm_g.fmt).name} {gm_g.w}x{gm_g.h} == the "
             f"decode on CPU tensors, byte for byte | {card}")
 
+    # ---- phase 12: the general decode path --------------------------------
+    # 4K streams that only the general path takes, each decoded through
+    # UhdrDecoder(device="cuda") (or JpegR.decode(use_fused=False) for
+    # phase 4's files): one apply launch a request (SRGB: none), its output
+    # bit-identical to the plain apply on the card run on the request's own
+    # stage outputs (JpegR._general_planes and _apply_inputs, the stages the
+    # request ran)
+    from libultrahdr_tpu_torch.container import icc as icc_mod
+    from libultrahdr_tpu_torch.editor import resize_channels
+    from libultrahdr_tpu_torch.jpeg.encoder import JpegEncoder
+    b_primary, b_gm, b_md = testing.read_jpegr(outputs["benchmark"][0])
+    icc_p3 = icc_mod.write_icc_profile(CT.SRGB, CG.DISPLAY_P3)
+
+    def yuv400(plane) -> port.RawImage:
+        return port.RawImage(Fmt.YUV400, CG.UNSPECIFIED, CT.UNSPECIFIED,
+                             port.ColorRange.FULL, plane.shape[1],
+                             plane.shape[0], [plane])
+
+    def api4_file(base_jpeg: bytes, gm_jpeg: bytes, md) -> bytes:
+        enc = port.UhdrEncoder(device="cuda")
+        enc.set_compressed_image(port.CompressedImage(base_jpeg,
+                                                      CG.DISPLAY_P3),
+                                 port.ImgLabel.BASE)
+        enc.set_gainmap_image(port.CompressedImage(gm_jpeg), md)
+        return enc.encode()
+
+    def general_files(b_primary, b_gm, b_md, dv, crop_rows):
+        """(resized-map file, grayscale-base file) from a file's parts on
+        device dv: its map cropped to `crop_rows` rows and re-compressed,
+        and its base's luma re-compressed as a YUV400 base (the port's
+        JpegEncoder), each wrapped through API-4."""
+        gm_info = jpeg_decoder.parse_jpeg(b_gm)
+        (gy,), _ = jpeg_decoder.decode_to_planes(b_gm, gm_info, dv)
+        cropped = JpegEncoder(dv).compress(
+            yuv400(gy[:crop_rows].contiguous()), 95, icc=gm_info.icc,
+            gainmap_comment=True)
+        (by, _, _), _ = jpeg_decoder.decode_to_planes(b_primary, None, dv)
+        gray = JpegEncoder(dv).compress(yuv400(by), 95, icc=icc_p3)
+        return (api4_file(testing.without_app_segments(b_primary, True),
+                          cropped, b_md),
+                api4_file(gray, testing.without_app_segments(b_gm, True),
+                          b_md))
+
+    zero_counts()
+    frac = {mc: encode(img, dict(scale=7, multichannel=mc),
+                       f"P010 map scale 7 {3 if mc else 1}-channel", "12")
+            for mc in (False, True)}
+    resized, gray = general_files(b_primary, b_gm, b_md, dev, 480)
+    general_input_launches = read_counts("the general path's input encodes",
+                                         {"pack_scan": 2})
+    progressive = testing.PROGRESSIVE_FIXTURE.read_bytes()
+    general = [  # (what, file, output, use_fused)
+        ("fractional 1-channel", frac[False], CT.HLG, True),
+        ("fractional 1-channel", frac[False], CT.LINEAR, True),
+        ("fractional 3-channel", frac[True], CT.HLG, True),
+        ("fractional 3-channel", frac[True], CT.LINEAR, True),
+        ("resized map", resized, CT.PQ, True),
+        ("grayscale base", gray, CT.HLG, True),
+        ("progressive fixture", progressive, CT.HLG, True),
+        ("progressive fixture", progressive, CT.SRGB, True),
+        ("use_fused=False benchmark", outputs["benchmark"][0], CT.HLG, False),
+        ("use_fused=False default", outputs["default"][0], CT.HLG, False)]
+    jr_g = port.JpegR(device="cuda")
+    general_out, general_ms = [], []
+    zero_counts()
+    for what, data, ct, use_fused in general:
+        before = ak.APPLY_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if use_fused:
+            dec = port.UhdrDecoder(device="cuda")
+            dec.set_image(data)
+            dec.set_out_color_transfer(ct)
+            dec.set_out_img_format(fmt_of.get(ct, Fmt.RGBA8888))
+            img_out = dec.decode()
+        else:
+            img_out, _, _ = jr_g.decode(data, ct, use_fused=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = 0 if ct == CT.SRGB else 1
+        if ak.APPLY_KERNEL.launches != before + want:
+            raise AssertionError(f"general path {what} {ct.name} launched "
+                                 f"the apply kernel "
+                                 f"{ak.APPLY_KERNEL.launches - before} "
+                                 f"times, not {want}")
+        general_out.append(img_out)
+        general_ms.append(ms)
+        log(f"phase 12 decode {what} {ct.name}: {ms:.1f} ms, "
+            f"{w * h / ms / 1e3:.2f} MP/s, {img_out.w}x{img_out.h} "
+            f"{Fmt(img_out.fmt).name} | {card}")
+    n_hdr = sum(ct != CT.SRGB for _, _, ct, _ in general)
+    n_linear = sum(ct == CT.LINEAR for _, _, ct, _ in general)
+    general_launches = read_counts("general decode", {
+        "apply_gainmap": n_hdr, "apply_linear": n_linear})
+
+    # the host stages of each request, timed alone on the same file
+    for (what, data, ct, _), ms in zip(general, general_ms):
+        if ct == CT.SRGB:
+            continue
+        t0 = time.perf_counter()
+        primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
+            jr_g._parse_jpegr(data)
+        t1 = time.perf_counter()
+        jpeg_decoder.decode_coefficients(primary, pinfo)
+        jpeg_decoder.decode_coefficients(gm_jpeg, gm_info)
+        t2 = time.perf_counter()
+        resize_ms = 0.0
+        if abs(w / h - gm_info.width / gm_info.height) / (w / h) > 0.01:
+            sdr, gain_u8 = jr_g._general_planes(primary, pinfo, gm_jpeg,
+                                                gm_info, sdr_cg)
+            host_map = gain_u8.cpu().numpy()
+            t3 = time.perf_counter()
+            resize_channels(host_map, w, h)
+            resize_ms = (time.perf_counter() - t3) * 1e3
+        parse_ms, huff_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        log(f"phase 12 stages {what} {ct.name}: parse {parse_ms:.1f} ms, "
+            f"host Huffman (both images) {huff_ms:.1f} ms, host resize "
+            f"{resize_ms:.1f} ms, the rest (uploads, device stages, "
+            f"download) {ms - parse_ms - huff_ms - resize_ms:.1f} ms of "
+            f"{ms:.1f} | {card}")
+
+    # each HDR request against the plain apply on its own stage outputs;
+    # the kernel's time on the new gain shapes
+    general_rows = {}
+    for (what, data, ct, _), img_out in zip(general, general_out):
+        if ct == CT.SRGB:
+            continue
+        primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
+            jr_g._parse_jpegr(data)
+        sdr, gain_u8 = jr_g._general_planes(primary, pinfo, gm_jpeg, gm_info,
+                                            sdr_cg)
+        a = jr_g._apply_inputs(sdr, gain_u8, gm_cg, md, jpegr.FLT_MAX)
+        gain = idw.idw_upsample(apply_ops._gain_to_float(a["gain"]),
+                                a["scale_k"], h, w).contiguous()
+        rows = ak.meta_to_rows(a["meta"])
+        kw_a = dict(out_ct=ct, sdr_cg=a["sdr_cg"], hdr_cg=a["hdr_cg"],
+                    use_base_cg=a["use_base_cg"])
+        p_out = ak.apply_gainmap_plain(a["sdr_yuv"], gain, rows, a["weight"],
+                                       **kw_a)
+        apply_err = max(apply_err, bit_identical(
+            img_out.planes[0], p_out,
+            f"general path {what} {ct.name} vs plain apply"))
+        shape = (f"{gain.shape[0]}-channel {a['gain'].dtype} "
+                 f"{tuple(a['gain'].shape[1:])} gain at scale "
+                 f"{a['scale_k']}")
+        if what.startswith("fractional") and ct == CT.HLG:
+            mapped = gain_u8.to(torch.float32) / torch.full(
+                (), 255.0, device=dev)
+            idw_ms = cuda_ms(lambda: idw.idw_upsample_fractional(
+                mapped, w / gain_u8.shape[2], h, w), 5)
+            shape += (f" | float-factor IDW {idw_ms:.3f} ms from the "
+                      f"{gain_u8.shape[2]}x{gain_u8.shape[1]} map (CUDA "
+                      "events)")
+        if (what, ct) in (("fractional 3-channel", CT.HLG),
+                          ("resized map", CT.PQ)):
+            k_out = ak.APPLY_KERNEL(a["sdr_yuv"], gain, rows, a["weight"],
+                                    **kw_a)
+            bit_identical(k_out, p_out, f"apply kernel on {what}")
+            ker_ms = cuda_ms(lambda: ak.APPLY_KERNEL(
+                a["sdr_yuv"], gain, rows, a["weight"], **kw_a), 20)
+            plain_ms = cuda_ms(lambda: ak.apply_gainmap_plain(
+                a["sdr_yuv"], gain, rows, a["weight"], **kw_a), 5)
+            moved = nbytes(a["sdr_yuv"], gain, k_out)
+            b_ms, b_by = bound(moved, 150 * w * h)
+            general_rows[what, ct] = dict(ms=ker_ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by)
+            shape += (f" | apply kernel {ker_ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms (CUDA events), bound {b_ms:.4f} ms "
+                      f"({b_by}, {moved / 1e6:.0f} MB)")
+        log(f"phase 12 checks {what} {ct.name}: == plain apply on its stage "
+            f"outputs, bit-identical; {shape} | {card}")
+
+    # the progressive fixture's planes: its coefficients through
+    # inverse_plane on the card == on CPU tensors
+    p_primary, p_gm = port.JpegR.extract_primary_and_gainmap(progressive)
+    p_info = jpeg_decoder.parse_jpeg(p_primary)
+    coeffs, qts, _ = jpeg_decoder.decode_coefficients(p_primary, p_info)
+    hmax = max(c.h for c in p_info.components)
+    vmax = max(c.v for c in p_info.components)
+    for i, (c, q, comp) in enumerate(zip(coeffs, qts, p_info.components)):
+        ph, pw = -(-h * comp.v // vmax), -(-w * comp.h // hmax)
+        on_card = dct.inverse_plane(torch.from_numpy(c).to(dev), q, ph,
+                                    pw).cpu()
+        if not torch.equal(on_card, dct.inverse_plane(torch.from_numpy(c), q,
+                                                      ph, pw)):
+            raise AssertionError(f"progressive plane {i}: IDCT on the card "
+                                 "!= on the CPU")
+    log(f"phase 12 progressive fixture: {len(p_info.scans)} scans, planes "
+        f"{', '.join(f'{c.shape[1] * 8}x{c.shape[0] * 8}' for c in coeffs)}"
+        " (MCU-padded) bit-identical on the card and the CPU")
+    # against the port's CPU decode: the fixture at 4K (no PIL here to make
+    # a small progressive file), the other kinds small
+    card_out = next(o for (what, _, ct, _), o in zip(general, general_out)
+                    if what == "progressive fixture" and ct == CT.HLG)
+    cpu_out = port.JpegR(device="cpu").decode(progressive, CT.HLG)[0]
+    err, share = testing.check_decoded_close(
+        card_out.planes[0], cpu_out.planes[0], CT.HLG,
+        "progressive fixture card vs CPU")
+    log(f"phase 12 progressive fixture HLG: card decode vs CPU decode "
+        f"within the contract, max abs difference {err}, {share:.2e} of "
+        "samples differ")
+    sw, sh = 136, 72
+    small_img = testing.photo_p010(sw, sh)
+
+    def small_file(scale, mc):
+        enc = port.UhdrEncoder(device="cpu")
+        enc.set_raw_image(small_img, port.ImgLabel.HDR)
+        enc.set_gainmap_scale_factor(scale)
+        enc.set_using_multi_channel_gainmap(mc)
+        return enc.encode()
+
+    s_primary, s_gm, s_md = testing.read_jpegr(small_file(4, False))
+    s_resized, s_gray = general_files(s_primary, s_gm, s_md,
+                                      torch.device("cpu"), 12)
+    smalls = {"fractional 1-channel": (small_file(3, False), True),
+              "fractional 3-channel": (small_file(3, True), True),
+              "resized map": (s_resized, True),
+              "grayscale base": (s_gray, True),
+              "use_fused=False benchmark": (small_file(4, False), False),
+              "use_fused=False default": (small_file(1, True), False)}
+    for what, (data, use_fused) in smalls.items():
+        for ct in (CT.HLG, CT.LINEAR):
+            res = {d: port.JpegR(device=d).decode(
+                data, ct, use_fused=use_fused)[0].planes[0]
+                for d in ("cuda", "cpu")}
+            err, share = testing.check_decoded_close(
+                res["cuda"], res["cpu"], ct, f"small {what} {ct.name}")
+        log(f"phase 12 small image {what} ({sw}x{sh}): card decode vs CPU "
+            f"decode within the contract, HLG and LINEAR, max abs "
+            f"difference {err}, {share:.2e} of samples differ")
+
+    # ---- phase 13: the host decode engine ---------------------------------
+    # JpegR.decode_host of phase 4's files at 4K, on the host beside the
+    # card's decode of the same file and transfer (UhdrDecoder on the card,
+    # one apply launch), held to the JAX package's host-vs-device gate:
+    # >= 55 dB a channel
+    def psnr_channels(a, b) -> list[float]:
+        a, b = testing.host_packed(a), testing.host_packed(b)
+        if a.dtype == np.uint32:
+            chans = [(testing.codes_1010102(x)[:3].astype(np.float64), 1023.0)
+                     for x in (a, b)]
+        else:
+            chans = [(x[..., :3].view(np.float16).astype(np.float64)
+                      .transpose(2, 0, 1), 10000.0 / 203.0) for x in (a, b)]
+        (ca, peak), (cb, _) = chans
+        mse = ((ca - cb) ** 2).mean(axis=(1, 2))
+        return [float("inf") if m == 0 else float(10 * np.log10(
+            peak ** 2 / m)) for m in mse]
+
+    host_launches = {"apply_gainmap": 0, "apply_linear": 0}
+    for cfg in configs:
+        data = outputs[cfg][0]
+        for ct in (CT.HLG, CT.LINEAR):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec = port.UhdrDecoder(device="cuda")
+            dec.set_image(data)
+            dec.set_out_color_transfer(ct)
+            dec.set_out_img_format(fmt_of[ct])
+            card_img = dec.decode()
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            host_ms = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                host_img, _ = jr_g.decode_host(data, ct)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            got = read_counts(f"card decode beside decode_host {cfg} "
+                              f"{ct.name}", {"apply_gainmap": 1,
+                                             "apply_linear": int(
+                                                 ct == CT.LINEAR)})
+            for k in host_launches:
+                host_launches[k] += got[k]
+            db = psnr_channels(host_img.planes[0], card_img.planes[0])
+            if min(db) < 55.0:
+                raise AssertionError(f"decode_host {cfg} {ct.name}: "
+                                     f"{db} dB against the card's decode")
+            log(f"phase 13 decode_host {cfg} {ct.name}: {host_ms[0]:.1f} / "
+                f"{host_ms[1]:.1f} ms on the host, "
+                f"{w * h / host_ms[1] / 1e3:.2f} MP/s, against the card's "
+                f"decode {card_ms:.1f} ms; "
+                f"{', '.join(f'{x:.2f}' for x in db)} dB a channel against "
+                f"the card's output | {card}")
+    # the host engine's stages on the benchmark file, HLG, each timed alone
+    data = outputs["benchmark"][0]
+    primary, pinfo, gm_jpeg, gm_info, md, _, _ = jr_g._parse_jpegr(data)
+    t0 = time.perf_counter()
+    (bc, bq, _), (gc, gq, _) = (jpeg_decoder.decode_coefficients(j, i) for
+                                j, i in ((primary, pinfo),
+                                         (gm_jpeg, gm_info)))
+    t1 = time.perf_counter()
+    y, u, v = (native.idct_plane(c, q) for c, q in zip(bc, bq))
+    gm8 = native.idct_plane(gc[0], gq[0])[:gm_info.height, :gm_info.width]
+    t2 = time.perf_counter()
+    meta15 = np.concatenate([np.asarray(getattr(md, f), np.float32) for f in (
+        "gamma", "min_content_boost", "max_content_boost", "offset_sdr",
+        "offset_hdr")])
+    native.apply_gainmap_host(y, u, v, 2, 2, w, h, gm8, w // gm_info.width,
+                              meta15, 1.0, 1, None, True)
+    t3 = time.perf_counter()
+    march = subprocess.run(
+        [os.environ.get("UHDR_TPU_CXX", "g++"), "-march=native", "-Q",
+         "--help=target"], capture_output=True, text=True).stdout
+    march = re.search(r"-march=\s+(\S+)", march)
+    log(f"phase 13 decode_host stages, benchmark HLG: host Huffman (both "
+        f"images) {(t1 - t0) * 1e3:.1f} ms, float IDCT (4 planes) "
+        f"{(t2 - t1) * 1e3:.1f} ms, apply (IDW, gain, OETF, packing) "
+        f"{(t3 - t2) * 1e3:.1f} ms, one thread; the host C++ built with "
+        f"-march=native = {march.group(1) if march else 'unknown'}")
+    # pinned through the decoder: UHDR_TPU_DECODE_ENGINE=host
+    os.environ["UHDR_TPU_DECODE_ENGINE"] = "host"
+    try:
+        zero_counts()
+        dec = port.UhdrDecoder(device="cuda")
+        dec.set_image(outputs["benchmark"][0])
+        dec.set_out_color_transfer(CT.HLG)
+        dec.set_out_img_format(Fmt.RGBA1010102)
+        via = dec.decode().planes[0]
+        read_counts("UhdrDecoder with UHDR_TPU_DECODE_ENGINE=host", {})
+    finally:
+        del os.environ["UHDR_TPU_DECODE_ENGINE"]
+    if not np.array_equal(via, jr_g.decode_host(outputs["benchmark"][0],
+                                                CT.HLG)[0].planes[0]):
+        raise AssertionError("UHDR_TPU_DECODE_ENGINE=host != decode_host")
+    log("phase 13 UhdrDecoder(device=\"cuda\") with "
+        "UHDR_TPU_DECODE_ENGINE=host: == JpegR.decode_host, no launch")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -1284,14 +1641,18 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": None}
 
     linear = apply_launches["apply_linear"] \
-        + batch_launches[CT.LINEAR]["apply_linear"]
+        + batch_launches[CT.LINEAR]["apply_linear"] \
+        + general_launches["apply_linear"] + host_launches["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
-        + sum(c["apply_gainmap"] for c in batch_launches.values()) - linear
+        + sum(c["apply_gainmap"] for c in batch_launches.values()) \
+        + general_launches["apply_gainmap"] \
+        + host_launches["apply_gainmap"] - linear
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
                + api1_launches["pack_scan"]
-               + compressed_launches["pack_scan"] + pipe_launches,
+               + compressed_launches["pack_scan"] + pipe_launches
+               + general_input_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -1309,6 +1670,8 @@ def main() -> int:
         record("apply_gainmap_linear", "apply_kernel.cu",
                "ops/pallas_apply.py:164", linear,
                apply_rows["default", CT.LINEAR], apply_err)]}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
+        "to the records")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

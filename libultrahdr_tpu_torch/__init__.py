@@ -8,11 +8,14 @@ PyTorch and every TPU kernel on a ported path rewritten by hand for Hopper
 C++ (``csrc/host/``, bound in ``jpeg/native.py``).  Ported so far: the
 API-0..4 encodes (``UhdrEncoder(device=...)``, ``JpegR.encode_api0`` ..
 ``encode_api4``) and the throughput-mode API-0 P010 encode
-(``fused.encode_api0_p010_pipelined``); the fused JPEG_R decode to HLG, PQ
-or LINEAR output and the SRGB / RGBA8888 output (``UhdrDecoder(device=...)``,
-``JpegR.decode``), the device-resident decode per image, batched and
-microbatched (``JpegR.decode_to_device``, ``decode_to_device_batch``), and
-``is_uhdr_image``; ROADMAP.md lists the slices still to come.
+(``fused.encode_api0_p010_pipelined``); the JPEG_R decode to HLG, PQ or
+LINEAR output on the fused route and on the general path (progressive and
+grayscale streams, fractional and resized gain maps) and the SRGB /
+RGBA8888 output (``UhdrDecoder(device=...)``, ``JpegR.decode``), the native
+host decode engine (``JpegR.decode_host``), the device-resident decode per
+image, batched and microbatched (``JpegR.decode_to_device``,
+``decode_to_device_batch``), and ``is_uhdr_image``; ROADMAP.md lists the
+slices still to come.
 
 The tensor math runs in full float32: TF32 matrix products and convolutions
 are turned off here, because the JAX package runs its DCT at HIGHEST

@@ -1,7 +1,8 @@
 """Build-at-first-use for the port's native libraries.
 
-Both the host C++ (the restart-row joiner, the scan decoder and the scan
-encoder, the port's own copy under ``csrc/host/``) and the CUDA kernels under
+Both the host C++ (the restart-row joiner, the scan decoders, the scan
+encoder and the host decode engine, the port's own copy under
+``csrc/host/``) and the CUDA kernels under
 ``csrc/`` (each a ``CudaLibrary``, built through ``build_cuda``, one nvcc
 command line for all) are compiled on first use into ``libultrahdr_tpu_torch/_build/``,
 a directory that ``.gitignore`` lists.  Each library is keyed by a hash of its
@@ -26,19 +27,27 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR / "_build"
 
 
+def library_path(name: str, sources: list[pathlib.Path], command: list[str],
+                 key: str = "") -> pathlib.Path:
+    """``_build/<name>_<hash>.so``: the hash of the sources, the command
+    line and `key`."""
+    blob = b"".join(s.read_bytes() for s in sources)
+    blob += " ".join(command).encode() + key.encode()
+    return BUILD_DIR / f"{name}_{hashlib.sha256(blob).hexdigest()[:16]}.so"
+
+
 def build_shared(name: str, sources: list[pathlib.Path],
-                 command: list[str]) -> tuple[pathlib.Path, str]:
+                 command: list[str], key: str = "") -> tuple[pathlib.Path, str]:
     """Compile `sources` into ``_build/<name>_<hash>.so`` unless present.
 
     `command` is the compiler invocation without sources and output; the
-    sources and ``-o <tmp>`` are appended.  Returns (library path, the
-    compiler's stderr of the build, or "" when the library was cached).
-    A failed build raises RuntimeError carrying the compiler's output."""
-    blob = b"".join(s.read_bytes() for s in sources)
-    blob += " ".join(command).encode()
-    tag = hashlib.sha256(blob).hexdigest()[:16]
+    sources and ``-o <tmp>`` are appended.  `key` joins the hash (what the
+    command line does not say, such as the host a ``-march=native`` build
+    is for).  Returns (library path, the compiler's stderr of the build, or
+    "" when the library was cached).  A failed build raises RuntimeError
+    carrying the compiler's output."""
+    so = library_path(name, sources, command, key)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{name}_{tag}.so"
     if so.exists():
         return so, ""
     with open(BUILD_DIR / f".{name}.lock", "w") as lock:

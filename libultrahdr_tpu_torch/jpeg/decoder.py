@@ -1,4 +1,5 @@
-"""Baseline JPEG decoder, host half, plus the device colour conversion.
+"""JPEG decoder (baseline and progressive), host half, plus the device
+colour conversion.
 
 Port of ``libultrahdr_tpu/jpeg/decoder.py``:
 
@@ -9,12 +10,15 @@ Port of ``libultrahdr_tpu/jpeg/decoder.py``:
 - ported to PyTorch: ``_ycc_to_rgb``, the device twin of libjpeg's fancy
   chroma upsample and fixed-point YCbCr->RGB, in int32 (bit-exact).
 
-The Huffman decode itself is the host native C++ (``native.decode_scan``,
-driven by ``decode_coefficients``); the IDCT is ``dct.inverse_plane``.
-``decode_to_planes`` (baseline only) chains the two: the host Huffman
-decode, a raw upload and the bit-exact IDCT on the device; ``decode_to_rgb``
-adds ``_ycc_to_rgb`` (the SRGB output's and the 3-channel gain map's RGB
-decode), and ``decode_to_rgba`` packs that as RGBA8888 for one download.
+The Huffman decode itself is the host native C++ (``native.decode_scan``
+for a baseline scan, ``native.decode_progressive_scan`` for each SOS of a
+progressive stream, ``_decode_progressive_coeffs``), driven by
+``decode_coefficients``; the IDCT is ``dct.inverse_plane``.
+``decode_to_planes`` chains the two: the host Huffman decode, a raw int16
+upload and the bit-exact IDCT on the device; ``decode_to_rgb`` adds
+``_ycc_to_rgb`` (``planes_to_rgb``: the SRGB output's and the 3-channel gain
+map's RGB decode), and ``decode_to_rgba`` packs that as RGBA8888 for one
+download.
 """
 
 from __future__ import annotations
@@ -287,10 +291,39 @@ def get_output_sampling_format(info: JpegInfo) -> ImgFmt:
     return table[key]
 
 
+def _decode_progressive_coeffs(data: bytes, info: JpegInfo, comps,
+                               mcus_w: int, mcus_h: int, hmax: int,
+                               vmax: int) -> list[np.ndarray]:
+    """Run every progressive SOS into shared coefficient arrays (T.81 G.2;
+    the role libjpeg's jdphuff.c plays for the reference): MCU-padded
+    (bh, bw, 64) int16, allocated C-contiguous before the C++ writes into
+    them scan by scan."""
+    if not info.scans:
+        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                        "progressive stream has no scans")
+    coeff_arrays = [np.zeros((mcus_h * c.v, mcus_w * c.h, 64), np.int16)
+                    for c in info.components]
+    for scan in info.scans:
+        scan_comps = []
+        for ci, dct, act in scan["comps"]:
+            c = info.components[ci]
+            comp_w = -(-info.width * c.h // hmax)    # ceil
+            comp_h = -(-info.height * c.v // vmax)
+            scan_comps.append((ci, dct, act, -(-comp_w // 8),
+                               -(-comp_h // 8)))
+        dc = [scan["dc_tables"].get(i) for i in range(4)]
+        ac = [scan["ac_tables"].get(i) for i in range(4)]
+        native.decode_progressive_scan(
+            data[scan["offset"]:scan["end"]], coeff_arrays, comps,
+            scan_comps, scan["ss"], scan["se"], scan["ah"], scan["al"],
+            mcus_w, mcus_h, scan["restart_interval"], dc, ac)
+    return coeff_arrays
+
+
 def decode_coefficients(data: bytes, info: JpegInfo):
-    """Host Huffman decode of a baseline scan to MCU-padded coefficient
-    arrays + natural-order quant tables per component (the front half of
-    ``decode_to_planes``, without the IDCT)."""
+    """Host Huffman decode of a baseline or progressive JPEG to MCU-padded
+    coefficient arrays + natural-order quant tables per component (the
+    front half of ``decode_to_planes``, without the IDCT)."""
     _validate(info)
     fmt = get_output_sampling_format(info)
     hmax = max(c.h for c in info.components)
@@ -299,10 +332,15 @@ def decode_coefficients(data: bytes, info: JpegInfo):
     mcus_h = -(-info.height // (8 * vmax))
     comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
              for c in info.components]
-    dc = [info.dc_tables.get(i) for i in range(4)]
-    ac = [info.ac_tables.get(i) for i in range(4)]
-    coeffs, _ = native.decode_scan(data[info.scan_offset:], comps, mcus_w,
-                                   mcus_h, dc, ac, info.restart_interval)
+    if info.progressive:
+        coeffs = _decode_progressive_coeffs(data, info, comps, mcus_w,
+                                            mcus_h, hmax, vmax)
+    else:
+        dc = [info.dc_tables.get(i) for i in range(4)]
+        ac = [info.ac_tables.get(i) for i in range(4)]
+        coeffs, _ = native.decode_scan(data[info.scan_offset:], comps,
+                                       mcus_w, mcus_h, dc, ac,
+                                       info.restart_interval)
     qts = [np.asarray(require_qtable(info, c), np.int32)
            for c in info.components]
     return coeffs, qts, fmt
@@ -310,15 +348,11 @@ def decode_coefficients(data: bytes, info: JpegInfo):
 
 def decode_to_planes(data: bytes, info: JpegInfo | None,
                      device: torch.device):
-    """Decode a baseline JPEG to its subsampled YCbCr planes
-    (DECODE_TO_YCBCR mode): (u8 tensors on `device`, fmt).  Progressive
-    streams raise ``unsupported``."""
+    """Decode a baseline or progressive JPEG to its subsampled YCbCr
+    planes (DECODE_TO_YCBCR mode): (u8 tensors on `device`, fmt).  The
+    coefficients travel as raw int16 and the IDCT is ``inverse_plane``."""
     if info is None:
         info = parse_jpeg(data)
-    if info.progressive:
-        raise unsupported(
-            "progressive JPEG decode is not ported yet (ROADMAP.md, Queue 1 "
-            "item 9b.3: the general decode path)")
     coeffs, qts, fmt = decode_coefficients(data, info)
     hmax = max(c.h for c in info.components)
     vmax = max(c.v for c in info.components)
@@ -414,18 +448,23 @@ _FMT_KEY = {ImgFmt.YUV444: "444", ImgFmt.YUV440: "440", ImgFmt.YUV422: "422",
 _ALPHA_8888 = -(1 << 24)
 
 
+def planes_to_rgb(planes, fmt: ImgFmt, h: int, w: int) -> torch.Tensor:
+    """Decoded YCbCr planes (``decode_to_planes``) -> the image's RGB
+    decode on their device: (3, h, w) uint8 through ``_ycc_to_rgb``, or a
+    YUV400 image's (1, h, w) luma."""
+    if fmt == ImgFmt.YUV400:
+        return planes[0][None]
+    return _ycc_to_rgb(planes[0], planes[1], planes[2], _FMT_KEY[fmt], h, w)
+
+
 def decode_to_rgb(data: bytes, info: JpegInfo | None,
                   device: torch.device) -> torch.Tensor:
-    """Decode a baseline JPEG to its RGB image on `device`
-    (DECODE_TO_RGB_CS mode): (3, H, W) uint8 through ``decode_to_planes``
-    and ``_ycc_to_rgb``; a YUV400 image gives its (1, H, W) luma."""
+    """Decode a JPEG to its RGB image on `device` (DECODE_TO_RGB_CS mode):
+    ``planes_to_rgb`` of ``decode_to_planes``."""
     if info is None:
         info = parse_jpeg(data)
     planes, fmt = decode_to_planes(data, info, device)
-    if fmt == ImgFmt.YUV400:
-        return planes[0][None]
-    return _ycc_to_rgb(planes[0], planes[1], planes[2], _FMT_KEY[fmt],
-                       info.height, info.width)
+    return planes_to_rgb(planes, fmt, info.height, info.width)
 
 
 def decode_to_rgba(data: bytes, info: JpegInfo | None,

@@ -1,12 +1,16 @@
-"""ctypes bindings to the port's host entropy C++.
+"""ctypes bindings to the port's host C++.
 
 The port keeps its own copy of the JAX package's native sources,
 ``csrc/host/jpeg_entropy.cpp`` and ``csrc/host/host_decode.cpp`` (identical
 in code, so the host stages of both packages agree bit for bit).  They are
 compiled with the system C++ compiler (UHDR_TPU_CXX, default g++) at first
-use into the port's ``_build/`` directory, for the generic target (no
--march=native: the bound functions are scalar integer code, and the library
-stays valid on any host that finds it in ``_build/``).  Bound here:
+use into the port's ``_build/`` directory with the JAX package's flags
+(``-O3 -march=native -fno-math-errno``): the host decode engine's float
+IDCT and apply take their AVX2/FMA and AVX-512 branches exactly where the
+JAX package's build does, so ``JpegR.decode_host`` gives the JAX package's
+bytes on the same host.  The library's key holds a hash of the compiler's
+``-march=native`` target macros, so a ``_build/`` copied to another host is
+rebuilt there rather than loaded.  Bound here:
 
 - ``join_blocks``: the restart-row joiner (``uhdr_join_blocks``) that turns
   the device's word-aligned block segments into the final scan: bit-level
@@ -14,15 +18,23 @@ stays valid on any host that finds it in ``_build/``).  Bound here:
   byte stuffing in one sequential pass;
 - ``decode_scan``: the baseline scan decoder (the decode's host Huffman
   stage, and the checks' reader of an encoded scan's coefficients);
+- ``decode_progressive_scan``: one progressive SOS (T.81 G.2) into shared
+  coefficient arrays;
 - ``encode_scan``: the general path's host entropy coder
   (``uhdr_encode_scan``): one interleaved baseline scan from quantised
-  coefficient planes, with byte stuffing and optional restart markers.
+  coefficient planes, with byte stuffing and optional restart markers;
+- the host decode engine (``JpegR.decode_host``): ``idct_plane`` (AAN float
+  IDCT to u8), ``ycbcr_to_rgb_planar`` (a 3-channel gain map's colour
+  decode) and ``apply_gainmap_host`` (IDW, gain, OETF and packing in one
+  pass).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import subprocess
 import threading
 
 import numpy as np
@@ -32,19 +44,34 @@ from ..errors import UhdrError, UhdrErrorCode
 
 _SRC_DIR = PKG_DIR / "csrc" / "host"
 _SRCS = [_SRC_DIR / "jpeg_entropy.cpp", _SRC_DIR / "host_decode.cpp"]
+# the JAX package's flags (libultrahdr_tpu/jpeg/native.py)
+_FLAGS = ["-O3", "-march=native", "-fno-math-errno", "-shared", "-fPIC",
+          "-std=c++17"]
 _LOCK = threading.Lock()
 _LIB = None
+
+
+def _host_target(cxx: str) -> str:
+    """The compiler's predefined macros under -march=native: the host's
+    instruction set as the build sees it."""
+    proc = subprocess.run([cxx, "-march=native", "-dM", "-E", "-x", "c++",
+                           "-"], input="", capture_output=True, text=True,
+                          check=True)
+    return hashlib.sha256(proc.stdout.encode()).hexdigest()
+
+
+def build_args() -> tuple:
+    """The host library's (name, sources, command, key) for
+    ``_buildlib.build_shared``: the key is the host's ``_host_target``."""
+    cxx = os.environ.get("UHDR_TPU_CXX", "g++")
+    return "jpeg_entropy", _SRCS, [cxx, *_FLAGS], _host_target(cxx)
 
 
 def get_lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            cxx = os.environ.get("UHDR_TPU_CXX", "g++")
-            so, _ = build_shared(
-                "jpeg_entropy", _SRCS,
-                [cxx, "-O3", "-fno-math-errno", "-shared", "-fPIC",
-                 "-std=c++17"])
+            so, _ = build_shared(*build_args())
             lib = ctypes.CDLL(str(so))
             lib.uhdr_join_blocks.restype = ctypes.c_int64
             lib.uhdr_join_blocks.argtypes = [
@@ -63,6 +90,33 @@ def get_lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
+            lib.uhdr_decode_progressive_scan.restype = ctypes.c_int64
+            lib.uhdr_decode_progressive_scan.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.uhdr_idct_plane.restype = None
+            lib.uhdr_idct_plane.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_ycbcr_to_rgb_planar.restype = None
+            lib.uhdr_ycbcr_to_rgb_planar.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.uhdr_apply_gainmap_host.restype = ctypes.c_int
+            lib.uhdr_apply_gainmap_host.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             _LIB = lib
     return _LIB
 
@@ -132,6 +186,15 @@ def encode_scan(comps, mcus_w: int, mcus_h: int, dc_tables, ac_tables,
     return out[:written].tobytes()
 
 
+def _require_table(tables, idx: int, kind: str):
+    """libjpeg parity: a scan referencing an absent or out-of-range table
+    is rejected (jdhuff.c jpeg_make_d_derived_tbl, JERR_NO_HUFF_TABLE)."""
+    if not (0 <= idx <= 3) or tables[idx] is None:
+        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                        f"scan references missing {kind} huffman table "
+                        f"{idx}")
+
+
 def decode_scan(data: bytes, comps, mcus_w: int, mcus_h: int, dc_tables,
                 ac_tables, restart_interval: int = 0):
     """Decode one interleaved baseline scan (`data` starts right after the
@@ -140,9 +203,8 @@ def decode_scan(data: bytes, comps, mcus_w: int, mcus_h: int, dc_tables,
     bytes consumed)."""
     lib = get_lib()
     for c in comps:
-        if dc_tables[c["dc_tbl"]] is None or ac_tables[c["ac_tbl"]] is None:
-            raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
-                            "scan references a missing huffman table")
+        _require_table(dc_tables, c["dc_tbl"], "DC")
+        _require_table(ac_tables, c["ac_tbl"], "AC")
     n = len(comps)
     outs = [np.zeros((mcus_h * c["v"], mcus_w * c["h"], 64), np.int16)
             for c in comps]
@@ -161,3 +223,107 @@ def decode_scan(data: bytes, comps, mcus_w: int, mcus_h: int, dc_tables,
         raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
                         f"entropy decode failed: {consumed}")
     return outs, int(consumed)
+
+
+def decode_progressive_scan(data: bytes, coeff_arrays, comps, scan_comps,
+                            ss: int, se: int, ah: int, al: int,
+                            mcus_w: int, mcus_h: int, restart_interval: int,
+                            dc_tables, ac_tables):
+    """Decode one progressive SOS (T.81 G.2) into `coeff_arrays` in place.
+
+    coeff_arrays: the image's (bh, bw, 64) int16 zigzag arrays, MCU-padded
+    and C-contiguous (their pointers are handed to the C++); comps: per
+    image component {h, v}; scan_comps: [(comp_index, dc_tbl, ac_tbl, sbw,
+    sbh), ...], sbw/sbh the component's non-interleaved block counts."""
+    lib = get_lib()
+    # only the tables the scan uses must exist (jdphuff.c start_pass:
+    # DC-first needs DC tables, AC scans the AC table, DC refine none)
+    for sc in scan_comps:
+        if ss == 0 and ah == 0:
+            _require_table(dc_tables, sc[1], "DC")
+        elif ss > 0:
+            _require_table(ac_tables, sc[2], "AC")
+    for a in coeff_arrays:
+        if a.dtype != np.int16 or not a.flags.c_contiguous:
+            raise ValueError("coefficient arrays must be C-contiguous int16")
+    n = len(coeff_arrays)
+    ptrs = (ctypes.c_void_p * n)(*[a.ctypes.data for a in coeff_arrays])
+    meta = np.zeros((n, 6), np.int32)
+    for i, c in enumerate(comps):
+        bh, bw = coeff_arrays[i].shape[:2]
+        meta[i] = [bw, bh, c["h"], c["v"], 0, 0]
+    smeta = np.asarray(scan_comps, np.int32).reshape(-1, 5)
+    dcb, dcv, acb, acv = _table_blobs(dc_tables, ac_tables)
+    buf = np.frombuffer(data, np.uint8)
+    rc = lib.uhdr_decode_progressive_scan(
+        buf.ctypes.data, len(data), ptrs, meta.ctypes.data, n,
+        smeta.ctypes.data, smeta.shape[0], ss, se, ah, al,
+        mcus_w, mcus_h, restart_interval,
+        dcb.ctypes.data, dcv.ctypes.data, acb.ctypes.data, acv.ctypes.data)
+    if rc < 0:
+        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                        f"progressive scan decode failed: {rc}")
+
+
+def idct_plane(coeffs: np.ndarray, qt_natural: np.ndarray) -> np.ndarray:
+    """Host IDCT: (bh, bw, 64) int16 zigzag coefficients + natural-order
+    quant table -> (bh*8, bw*8) uint8 plane (AAN float, host_decode.cpp)."""
+    lib = get_lib()
+    c = np.ascontiguousarray(coeffs, np.int16)
+    q = np.ascontiguousarray(qt_natural, np.int32).reshape(64)
+    bh, bw = c.shape[:2]
+    out = np.empty((bh * 8, bw * 8), np.uint8)
+    lib.uhdr_idct_plane(c.ctypes.data, bh, bw, q.ctypes.data,
+                        out.ctypes.data, bw * 8)
+    return out
+
+
+def ycbcr_to_rgb_planar(y: np.ndarray, cb: np.ndarray,
+                        cr: np.ndarray) -> np.ndarray:
+    """Full-range Rec.601 (h, w) u8 YCbCr planes -> (3, h, w) u8 planar
+    RGB (the host engine keeps a 3-channel gain map planar, so the apply
+    gathers straight from u8 rows)."""
+    lib = get_lib()
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    h, w = y.shape
+    out = np.empty((3, h, w), np.uint8)
+    lib.uhdr_ycbcr_to_rgb_planar(
+        y.ctypes.data, w, cb.ctypes.data, cr.ctypes.data, w, w, h,
+        out[0].ctypes.data, out[1].ctypes.data, out[2].ctypes.data)
+    return out
+
+
+def apply_gainmap_host(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                       hf: int, vf: int, w: int, h: int,
+                       gm: np.ndarray, k: int, meta15: np.ndarray,
+                       weight: float, out_ct: int,
+                       gamut_m: np.ndarray | None,
+                       gamut_pre: bool,
+                       gm_planar: bool = False) -> np.ndarray:
+    """The host engine's fused apply (``uhdr_apply_gainmap_host``).
+
+    gm: (mh, mw) u8 single-channel, (mh, mw, 3) u8 interleaved, or
+    (3, mh, mw) u8 planar (`gm_planar`).  Returns (h, w) uint32 packed
+    RGBA1010102 (out_ct 1 HLG, 2 PQ) or (h, w) uint64 packed RGBAF16
+    (out_ct 0)."""
+    lib = get_lib()
+    yc, uc, vc, gmc = (np.ascontiguousarray(p, np.uint8)
+                       for p in (y, u, v, gm))
+    ch = 3 if gmc.ndim == 3 else 1
+    if gm_planar and (gmc.ndim != 3 or gmc.shape[0] != 3):
+        raise ValueError(f"a planar gain map is (3, mh, mw), not "
+                         f"{gmc.shape}")
+    mh, mw = gmc.shape[1:3] if gm_planar else gmc.shape[:2]
+    m = np.ascontiguousarray(meta15, np.float32).reshape(15)
+    gp = None if gamut_m is None else \
+        np.ascontiguousarray(gamut_m, np.float32).reshape(9)
+    out = np.empty((h, w), np.uint64 if out_ct == 0 else np.uint32)
+    rc = lib.uhdr_apply_gainmap_host(
+        yc.ctypes.data, yc.shape[1], uc.ctypes.data, vc.ctypes.data,
+        uc.shape[1], hf, vf, w, h, gmc.ctypes.data, ch, mw, mh, k,
+        int(bool(gm_planar)), m.ctypes.data, float(weight), int(out_ct),
+        gp.ctypes.data if gp is not None else None, int(bool(gamut_pre)),
+        out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"apply_gainmap_host failed: {rc}")
+    return out

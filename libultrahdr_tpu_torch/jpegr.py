@@ -17,12 +17,24 @@ work.  The helpers return ``RawImage``s with host planes, as the JAX
 package's do.
 
 The decode to HLG or PQ (RGBA1010102) and LINEAR (RGBAF16) takes the fused
-route: a baseline JPEG_R whose base is 4:4:4, 4:2:2, 4:2:0 or 4:4:0 and
-whose gain map is 1 or 3 full-resolution channels at an integer scale.  The
-SRGB output (RGBA8888) is the base image's own RGB decode on the device, and
-its gain map is decoded only when the caller asks for it.  Everything else
-raises ``unsupported`` naming the ROADMAP item; it never falls back to
-another path.
+route for a baseline JPEG_R whose base is 4:4:4, 4:2:2, 4:2:0 or 4:4:0 and
+whose gain map is 1 or 3 full-resolution channels at an integer scale, and
+the general path (``decode(use_fused=False)``, the JAX package's
+``decode`` after ``_try_decode_fused`` returns None) for every other
+stream: a progressive or grayscale base, a progressive or subsampled
+3-channel map, a map whose size does not divide the image (the fractional
+IDW, ``ops/idw.idw_upsample_fractional``) or whose aspect ratio is more than
+1% off (``editor.resize_channels`` on the host, then the upload).  Which
+route a stream takes is decided from its parsed headers before anything is
+uploaded or launched (``_fused_plan``); both routes end in the same apply
+kernel launch (``apply_gainmap``).  The SRGB output (RGBA8888) is the base
+image's own RGB decode on the device, and its gain map is decoded only when
+the caller asks for it.
+
+``decode_host`` is the JAX package's native host engine: the Huffman decode,
+a float IDCT and the apply in the host C++ (``jpeg/native.py``), touching no
+tensor; it raises ``unsupported`` for the streams the fused route does not
+take, as the JAX package's does.
 
 ``decode_to_device`` leaves the output on the device.  By default
 concurrent callers are coalesced (``_DeviceDecodeMicrobatcher``) into one
@@ -46,12 +58,16 @@ import torch
 from . import fused
 from .container import icc as icc_mod
 from .container import iso21496, jpegr_container, segments, xmp
+from .editor import resize_channels
 from .errors import UhdrError, UhdrErrorCode, invalid_param, unsupported
-from .jpeg.decoder import (decode_to_planes, decode_to_rgb, decode_to_rgba,
-                           get_output_sampling_format, parse_jpeg)
+from .jpeg import native
+from .jpeg.decoder import (decode_coefficients, decode_to_planes,
+                           decode_to_rgb, decode_to_rgba,
+                           get_output_sampling_format, parse_jpeg,
+                           planes_to_rgb)
 from .jpeg.encoder import JpegEncoder
 from .ops import apply as apply_ops
-from .ops import colors, gainmap as gainmap_ops, pixel
+from .ops import colors, gainmap as gainmap_ops, idw, pixel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, CompressedImage,
                     EncPreset, GainMapMetadata, HDR_INPUT_FORMATS, ImgFmt,
@@ -569,8 +585,9 @@ class JpegR:
         Returns (RawImage dest, GainMapMetadata, gainmap RawImage | None).
         SRGB output is the base image's RGB decode as RGBA8888 (metadata
         None unless the gain map is returned).  HDR output takes the fused
-        route, its format following the transfer (HLG/PQ: RGBA1010102,
-        LINEAR: RGBAF16) as on the JAX package's fused route; `output_fmt`
+        route when ``_fused_plan`` takes the stream and `use_fused` is set,
+        else the general path; its format follows the transfer (HLG/PQ:
+        RGBA1010102, LINEAR: RGBAF16) as in the JAX package; `output_fmt`
         is accepted for the same signature and not read."""
         del output_fmt
         output_ct = ColorTransfer(output_ct)
@@ -584,14 +601,41 @@ class JpegR:
             gainmap_img = self._decode_gainmap_image(gm_jpeg, gm_info) \
                 if return_gainmap else None
             return dest, metadata, gainmap_img
-        if not use_fused:
-            raise unsupported(
-                "the general decode path is not ported yet (ROADMAP.md, "
-                "Queue 1 item 9b.3: the general decode path)")
-        dest, gainmap_img = self._try_decode_fused(
-            primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-            max_display_boost, sdr_cg, gm_cg)
+        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
+                                output_ct) if use_fused else None
+        if plan is not None:
+            dest, gainmap_img = self._try_decode_fused(
+                plan, primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
+                max_display_boost, gm_cg)
+        else:
+            dest, gainmap_img = self._decode_general(
+                primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
+                max_display_boost, sdr_cg, gm_cg)
         return dest, metadata, gainmap_img if return_gainmap else None
+
+    def _decode_general(self, primary, pinfo, gm_jpeg, gm_info, metadata,
+                        output_ct, max_display_boost, sdr_cg, gm_cg):
+        """The general decode path on ``self.device`` (the JAX package's
+        ``decode`` after its fused route declines): ``_general_planes``,
+        then ``apply_gainmap``.  Returns (dest RawImage, gainmap RawImage)
+        in host memory."""
+        sdr, gain_u8 = self._general_planes(primary, pinfo, gm_jpeg, gm_info,
+                                            sdr_cg)
+        dest = self.apply_gainmap(sdr, gain_u8, gm_cg, metadata, output_ct,
+                                  None, max_display_boost)
+        return dest, _gainmap_image(gain_u8, gm_cg)
+
+    def _general_planes(self, primary, pinfo, gm_jpeg, gm_info, sdr_cg):
+        """Both images decoded on ``self.device`` (baseline or progressive):
+        (the base as an SDR RawImage of device planes, the (C, mh, mw) u8
+        gain map: a YUV400 map's luma, else the RGB decode of the RGB-coded
+        map, DECODE_STREAM)."""
+        planes, base_fmt = decode_to_planes(primary, pinfo, self.device)
+        gm_planes, gm_fmt = decode_to_planes(gm_jpeg, gm_info, self.device)
+        gain_u8 = planes_to_rgb(gm_planes, gm_fmt, gm_info.height,
+                                gm_info.width)
+        return RawImage(base_fmt, sdr_cg, ColorTransfer.SRGB, ColorRange.FULL,
+                        pinfo.width, pinfo.height, planes), gain_u8
 
     def _decode_gainmap_image(self, gm_jpeg: bytes, gm_info) -> RawImage:
         """The gain-map image decoded on its own (uhdr_get_decoded_gainmap
@@ -601,51 +645,49 @@ class JpegR:
         return _gainmap_image(decode_to_rgb(gm_jpeg, gm_info, self.device),
                               gm_cg)
 
-    def _try_decode_fused(self, primary, pinfo, gm_jpeg, gm_info, metadata,
-                          output_ct, max_display_boost, sdr_cg, gm_cg):
-        """The fused decode with a raw download: (dest RawImage, gainmap
-        RawImage) in host memory."""
-        packed_dev, gm_dev, h_cg = self._decode_fused_device(
-            primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-            max_display_boost, sdr_cg, gm_cg)
-        w, h = pinfo.width, pinfo.height
-        if output_ct == ColorTransfer.LINEAR:
-            dest = RawImage(ImgFmt.RGBAF16, h_cg, output_ct, ColorRange.FULL,
-                            w, h, [packed_dev.cpu().numpy().view(np.uint16)])
-        else:
-            dest = RawImage(ImgFmt.RGBA1010102, h_cg, output_ct,
-                            ColorRange.FULL, w, h,
-                            [packed_dev.cpu().numpy().view(np.uint32)])
-        return dest, _gainmap_image(gm_dev, gm_cg)
+    def _try_decode_fused(self, plan: dict, primary, pinfo, gm_jpeg,
+                          gm_info, metadata, output_ct, max_display_boost,
+                          gm_cg):
+        """The fused decode of a stream that `plan` (``_fused_plan``) takes,
+        with a raw download: (dest RawImage, gainmap RawImage) in host
+        memory."""
+        packed_dev, gm_dev = self._decode_planned(
+            plan, fused.decode_coefficients(primary, pinfo),
+            fused.decode_coefficients(gm_jpeg, gm_info), metadata,
+            output_ct, max_display_boost)
+        return (_output_image(packed_dev, plan["hdr_cg"], output_ct,
+                              pinfo.width, pinfo.height),
+                _gainmap_image(gm_dev, gm_cg))
 
     @staticmethod
-    def _fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg) -> dict:
+    def _fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
+                    output_ct=ColorTransfer.HLG) -> dict | None:
         """The fused route's parameters of a parsed stream, in the order of
         the batch signature (w, h, sampling key, scale_k, gm_channels,
-        s_cg, h_cg, use_base_cg).  Raises ``unsupported`` for a stream the
-        fused route does not take."""
+        s_cg, h_cg, use_base_cg), or None for a stream the fused route does
+        not take, as the JAX package's ``_decode_fused_device`` declines
+        it: an output other than HLG/PQ/LINEAR, a progressive image, a base
+        of other than 3 components or a map of other than 1 or 3, a base
+        sampled other than 4:4:4, 4:2:2, 4:2:0 or 4:4:0, a subsampled
+        3-channel map, or a map whose size does not divide the image by one
+        integer factor."""
+        if ColorTransfer(output_ct) not in _DECODE_OUTPUTS:
+            return None
         if pinfo.progressive or gm_info.progressive:
-            raise unsupported(
-                "progressive JPEG_R streams are not ported yet (ROADMAP.md, "
-                "Queue 1 item 9b.3: the general decode path)")
+            return None
         if pinfo.num_components != 3 or gm_info.num_components not in (1, 3):
-            raise unsupported(
-                f"component counts {pinfo.num_components}/"
-                f"{gm_info.num_components} need the general path, not "
-                "ported yet (ROADMAP.md, Queue 1 item 9b.3)")
-        key = _SAMPLING_KEY.get(get_output_sampling_format(pinfo))
+            return None
+        try:
+            key = _SAMPLING_KEY.get(get_output_sampling_format(pinfo))
+        except UhdrError:
+            return None
         if key is None or (gm_info.num_components == 3 and any(
                 c.h != 1 or c.v != 1 for c in gm_info.components)):
-            raise unsupported(
-                "this chroma sampling needs the general decode path, not "
-                "ported yet (ROADMAP.md, Queue 1 item 9b.3)")
+            return None
         w, h = pinfo.width, pinfo.height
         mw, mh = gm_info.width, gm_info.height
         if mw == 0 or mh == 0 or w % mw or h % mh or w // mw != h // mh:
-            raise unsupported(
-                f"a {mw}x{mh} gain map on a {w}x{h} image needs the "
-                "fractional-scale or resize decode path, not ported yet "
-                "(ROADMAP.md, Queue 1 item 9b.3)")
+            return None
         s_cg = ColorGamut(sdr_cg)
         if s_cg == ColorGamut.UNSPECIFIED:
             s_cg = ColorGamut.BT709
@@ -677,14 +719,170 @@ class JpegR:
                              gm_cg):
         """Device half of the fused decode on ``self.device``; returns
         (packed output, gain map u8, hdr gamut) with the tensors left on the
-        device.  Raises ``unsupported`` for a stream the fused route does
-        not take."""
-        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg)
+        device.  A stream the fused route does not take raises
+        ``unsupported``: the device-resident decode has no general path, as
+        in the JAX package."""
+        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
+                                output_ct)
+        if plan is None:
+            raise unsupported(
+                "stream shape not supported by the fused decode path")
         packed, gm_u8 = self._decode_planned(
             plan, fused.decode_coefficients(primary, pinfo),
             fused.decode_coefficients(gm_jpeg, gm_info), metadata,
             output_ct, max_display_boost)
         return packed, gm_u8, plan["hdr_cg"]
+
+    # ------------------------------------------------------------------
+    # the general path's apply, and the host engine
+
+    def apply_gainmap(self, sdr: RawImage, gain_u8, gm_cg,
+                      metadata: GainMapMetadata, output_ct, output_fmt,
+                      max_display_boost: float) -> RawImage:
+        """applyGainMap (jpegr.cpp:1448-1699) on ``self.device``: an SDR
+        image (its planes host arrays or tensors) and a (C, mh, mw) uint8
+        gain map (host array or tensor) -> the HDR output as a RawImage in
+        host memory, its format following `output_ct` (`output_fmt` is not
+        read, as in the JAX package).  ``_apply_inputs``, then one apply
+        launch (``ops.apply.apply_gainmap_core``)."""
+        del output_fmt
+        a = self._apply_inputs(sdr, gain_u8, gm_cg, metadata,
+                               max_display_boost)
+        packed = apply_ops.apply_gainmap_core(
+            a["sdr_yuv"], a["gain"], a["meta"], scale_k=a["scale_k"],
+            weight=a["weight"], out_ct=ColorTransfer(output_ct),
+            sdr_cg=a["sdr_cg"], hdr_cg=a["hdr_cg"],
+            use_base_cg=a["use_base_cg"])
+        return _output_image(packed, a["hdr_cg"], output_ct, sdr.w, sdr.h)
+
+    def _apply_inputs(self, sdr: RawImage, gain_u8, gm_cg,
+                      metadata: GainMapMetadata,
+                      max_display_boost: float) -> dict:
+        """The inputs of ``apply_gainmap``'s apply on ``self.device``: the
+        SDR's YUV (3, H, W), the gain, its integer scale, the metadata
+        arrays, the weight and the gamuts.
+
+        A map whose aspect ratio is more than 1% off the image's is resized
+        to the image on the host (``editor.resize_channels``, float64
+        bicubic, jpegr.cpp:1525-1545) and uploaded again.  A map that is
+        the image divided by one integer factor stays u8 with that factor;
+        any other is upsampled with the float-factor IDW and stays float at
+        scale 1 (the reference samples the map in float and never
+        re-quantizes, gainmapmath.cpp:871-921)."""
+        sdr_cg = ColorGamut(sdr.cg)
+        if sdr_cg == ColorGamut.UNSPECIFIED:
+            sdr_cg = ColorGamut.BT709
+        hdr_cg = ColorGamut(gm_cg)
+        if hdr_cg == ColorGamut.UNSPECIFIED:
+            hdr_cg = sdr_cg
+        gain = pixel.plane_tensor(gain_u8, self.device)
+        mh, mw = gain.shape[1], gain.shape[2]
+        primary_ar = sdr.w / sdr.h
+        if abs(primary_ar - mw / mh) / primary_ar > 0.01:
+            gain = pixel.to_device(resize_channels(gain.cpu().numpy(), sdr.w,
+                                                   sdr.h), self.device)
+            mh, mw = gain.shape[1], gain.shape[2]
+        map_scale_factor = sdr.w / mw
+        scale_k = max(1, int(round(map_scale_factor)))
+        if map_scale_factor != float(scale_k) or mw * scale_k != sdr.w:
+            # a device divisor: CUDA multiplies by the reciprocal of a host
+            # scalar, where the JAX package divides
+            div = torch.full((), 255.0, dtype=torch.float32,
+                             device=self.device)
+            gain = torch.clamp(idw.idw_upsample_fractional(
+                gain.to(torch.float32) / div, map_scale_factor, sdr.h,
+                sdr.w), 0.0, 1.0)
+            scale_k = 1
+        weight = apply_ops.gainmap_weight(
+            max_display_boost, float(metadata.hdr_capacity_min),
+            float(metadata.hdr_capacity_max))
+        return {"sdr_yuv": pixel.unpack(sdr, self.device), "gain": gain,
+                "scale_k": scale_k,
+                "meta": apply_ops.metadata_to_arrays(metadata),
+                "weight": np.float32(weight), "sdr_cg": sdr_cg,
+                "hdr_cg": hdr_cg, "use_base_cg": bool(metadata.use_base_cg)}
+
+    def decode_host(self, data: bytes, output_ct=ColorTransfer.HLG,
+                    output_fmt=ImgFmt.RGBA1010102,
+                    max_display_boost: float = FLT_MAX,
+                    return_gainmap: bool = False):
+        """The JAX package's native host decode engine (``decode_host``):
+        Huffman decode, AAN float IDCT and the fused apply (IDW, gain, OETF,
+        packing) in the host C++, touching no tensor and no device.
+
+        Returns (RawImage dest, GainMapMetadata), with the gain-map image
+        as a third item when `return_gainmap`.  Raises ``unsupported`` for
+        exactly the streams the JAX package's raises for: an SRGB output, a
+        progressive image, other component counts, a base sampled other
+        than 4:4:4, 4:2:2, 4:2:0 or 4:4:0, a fractional map scale and a
+        subsampled 3-channel map.  Built with the JAX package's flags, it
+        gives the JAX package's bytes on the same host (``jpeg/native.py``);
+        against the device decode it holds the JAX package's own gate,
+        >= 55 dB a channel (its float IDCT is not libjpeg's islow)."""
+        del output_fmt
+        output_ct = ColorTransfer(output_ct)
+        if output_ct not in _DECODE_OUTPUTS:
+            raise unsupported("decode_host targets HDR outputs")
+        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
+            self._parse_jpegr(data)
+        if pinfo.progressive or gm_info.progressive:
+            raise unsupported("progressive stream: use the general path")
+        if pinfo.num_components != 3 or gm_info.num_components not in (1, 3):
+            raise unsupported("unsupported component layout")
+        base_fmt = get_output_sampling_format(pinfo)
+        hf, vf = {ImgFmt.YUV444: (1, 1), ImgFmt.YUV422: (2, 1),
+                  ImgFmt.YUV420: (2, 2), ImgFmt.YUV440: (1, 2)}.get(
+                      base_fmt, (0, 0))
+        if hf == 0:
+            raise unsupported(f"unsupported base sampling {base_fmt}")
+        w, h = pinfo.width, pinfo.height
+        mw, mh = gm_info.width, gm_info.height
+        if mw == 0 or mh == 0 or w % mw or h % mh or w // mw != h // mh:
+            raise unsupported("fractional map scale: use the general path")
+        if gm_info.num_components == 3 and any(
+                c.h != 1 or c.v != 1 for c in gm_info.components):
+            raise unsupported("subsampled multichannel gain map")
+        s_cg = ColorGamut.BT709 if sdr_cg == ColorGamut.UNSPECIFIED \
+            else ColorGamut(sdr_cg)
+        h_cg = s_cg if ColorGamut(gm_cg) == ColorGamut.UNSPECIFIED \
+            else ColorGamut(gm_cg)
+
+        base_coeffs, base_qts, _ = decode_coefficients(primary, pinfo)
+        gm_coeffs, gm_qts, _ = decode_coefficients(gm_jpeg, gm_info)
+        y, u, v = (native.idct_plane(c, q)
+                   for c, q in zip(base_coeffs, base_qts))
+        gm_planes = [native.idct_plane(c, q)[:mh, :mw]
+                     for c, q in zip(gm_coeffs, gm_qts)]
+        # an RGB-coded map is kept planar, so the apply gathers u8 rows
+        gm_u8 = gm_planes[0] if len(gm_planes) == 1 \
+            else native.ycbcr_to_rgb_planar(*gm_planes)
+        weight = apply_ops.gainmap_weight(
+            max_display_boost, float(metadata.hdr_capacity_min),
+            float(metadata.hdr_capacity_max))
+        # the C++ layout: [gamma, min, max, off_sdr, off_hdr], 3 each
+        meta15 = np.concatenate([np.asarray(getattr(metadata, f), np.float32)
+                                 for f in ("gamma", "min_content_boost",
+                                           "max_content_boost", "offset_sdr",
+                                           "offset_hdr")])
+        gamut_m = colors.gamut_conversion_matrix(h_cg, s_cg)
+        packed = native.apply_gainmap_host(
+            y, u, v, hf, vf, w, h, gm_u8, w // mw, meta15, weight,
+            {ColorTransfer.LINEAR: 0, ColorTransfer.HLG: 1,
+             ColorTransfer.PQ: 2}[output_ct],
+            None if np.allclose(gamut_m, np.eye(3)) else gamut_m,
+            gamut_pre=not bool(metadata.use_base_cg),
+            gm_planar=len(gm_planes) == 3)
+        if output_ct == ColorTransfer.LINEAR:
+            packed = packed[..., None].view(np.uint16).reshape(h, w, 4)
+        dest = _output_image(packed, h_cg, output_ct, w, h)
+        if not return_gainmap:
+            return dest, metadata
+        gm_img = RawImage(
+            ImgFmt.YUV400 if gm_u8.ndim == 2 else ImgFmt.RGB888,
+            ColorGamut(gm_cg), ColorTransfer.UNSPECIFIED, ColorRange.FULL,
+            mw, mh, [gm_u8 if gm_u8.ndim == 2 else
+                     np.ascontiguousarray(np.moveaxis(gm_u8, 0, -1))])
+        return dest, metadata, gm_img
 
     # ------------------------------------------------------------------
     # device-resident decode: per image, batched, microbatched
@@ -798,11 +996,8 @@ class JpegR:
         not take it (the per-image route then raises for it)."""
         primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
             self._parse_jpegr(data)
-        try:
-            plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg)
-        except UhdrError as e:
-            if e.code != UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE:
-                raise
+        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg)
+        if plan is None:
             return None
         return {"primary": primary, "pinfo": pinfo, "gm_jpeg": gm_jpeg,
                 "gm_info": gm_info, "metadata": metadata, "plan": plan}
@@ -838,6 +1033,19 @@ class JpegR:
             for packed, _ in outs.values():
                 packed.record_stream(cur)
         return outs
+
+
+def _output_image(packed, hdr_cg, output_ct, w: int, h: int) -> RawImage:
+    """A packed HDR output (tensor on any device, or host array) as a host
+    RawImage: RGBAF16 (H, W, 4) u16 patterns for LINEAR, else RGBA1010102
+    (H, W) u32."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    if ColorTransfer(output_ct) == ColorTransfer.LINEAR:
+        return RawImage(ImgFmt.RGBAF16, hdr_cg, output_ct, ColorRange.FULL,
+                        w, h, [packed.view(np.uint16)])
+    return RawImage(ImgFmt.RGBA1010102, hdr_cg, output_ct, ColorRange.FULL,
+                    w, h, [packed.view(np.uint32)])
 
 
 def _gainmap_image(gm_u8: torch.Tensor, gm_cg) -> RawImage:

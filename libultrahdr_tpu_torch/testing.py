@@ -22,12 +22,18 @@
 - ``launch_ms``, ``pack_kernel_ms``, ``slot_pack_kernel_ms``: a kernel's
   time on the card without its wrapper's host work;
 - ``check_decoded_close``: the contract between two decodes of one file
-  (RGBA1010102 or RGBAF16 output) by different programs or devices.
+  (RGBA1010102 or RGBAF16 output) by different programs or devices;
+- ``progressive_jpegr`` / ``write_progressive_fixture``: a JPEG_R file
+  with its base re-encoded progressive (PIL), and the committed 4K fixture
+  ``tests/data/progressive_jpegr_3840x2160.jpg`` made from the benchmark
+  configuration's file.
 """
 
 from __future__ import annotations
 
 import functools
+import io
+import pathlib
 import struct
 
 import numpy as np
@@ -46,6 +52,8 @@ from .types import (ColorGamut, ColorRange, ColorTransfer, GainMapMetadata,
                     ImgFmt, RawImage)
 
 PHOTO_NPZ = PKG_DIR.parent / "tests" / "data" / "photo_yu12_320x240.npz"
+PROGRESSIVE_FIXTURE = PKG_DIR.parent / "tests" / "data" / \
+    "progressive_jpegr_3840x2160.jpg"
 
 
 def photo_p010(w: int, h: int, seed: int = 11) -> RawImage:
@@ -590,3 +598,46 @@ def check_decoded_close(got, want, out_ct: ColorTransfer,
                              f"{limit}), {share:.2e} of samples differ "
                              f"(limit {share_limit}), PSNR {db:.2f} dB")
     return err, share
+
+
+def progressive_jpegr(data: bytes, quality: int = 85,
+                      subsampling: int = 2) -> bytes:
+    """`data` (a JPEG_R file) with its base decoded and re-encoded as a
+    progressive JPEG by PIL (4:2:0 by default, the base's ICC profile
+    kept), wrapped with the file's own gain map and metadata through
+    ``JpegR.encode_api4`` (host work only).  Imports PIL when called."""
+    from PIL import Image
+
+    from .container import icc
+    from .jpeg.decoder import parse_jpeg
+    from .jpegr import JpegR
+    from .types import CompressedImage
+    primary, gm_jpeg = JpegR.extract_primary_and_gainmap(data)
+    pinfo, gm_info = parse_jpeg(primary), parse_jpeg(gm_jpeg)
+    metadata = JpegR.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
+                                            pinfo.exif)
+    base = Image.open(io.BytesIO(primary))
+    buf = io.BytesIO()
+    base.convert("RGB").save(buf, "JPEG", progressive=True, quality=quality,
+                             subsampling=subsampling,
+                             icc_profile=base.info.get("icc_profile"))
+    cg = icc.read_icc_color_gamut(pinfo.icc) if pinfo.icc \
+        else ColorGamut.UNSPECIFIED
+    return JpegR(device="cpu").encode_api4(
+        CompressedImage(buf.getvalue(), cg),
+        CompressedImage(without_app_segments(gm_jpeg, keep_icc=True)),
+        metadata)
+
+
+def write_progressive_fixture(benchmark_file, out=PROGRESSIVE_FIXTURE):
+    """Write ``progressive_jpegr`` of the benchmark configuration's 4K
+    JPEG_R file (API-0 of ``photo_p010(3840, 2160)``, quality 95, map scale
+    4, single-channel map) to `out`.  Make that file on a GPU, where the
+    4K encode belongs, then rebuild the fixture where PIL is installed:
+
+        python3 -c "from libultrahdr_tpu_torch import testing; \\
+            testing.write_progressive_fixture('benchmark_3840x2160.jpg')"
+    """
+    data = progressive_jpegr(pathlib.Path(benchmark_file).read_bytes())
+    pathlib.Path(out).write_bytes(data)
+    return data

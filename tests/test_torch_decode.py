@@ -14,8 +14,9 @@
   neighbouring attainable codes of the OETF grid, within 1 away from black,
   on at most 5e-3 of the samples; half floats equal except on at most 1e-3
   of the samples, within 4 ulps; PSNR >= 60 dB).
-- ``UhdrDecoder``'s lifecycle and validation, mirrored from tests/test_api.py,
-  and the decode shapes this slice does not take raise ``unsupported``.
+- ``UhdrDecoder``'s lifecycle and validation, mirrored from tests/test_api.py;
+  the device-resident decode refuses the streams only the general path
+  takes, with the JAX package's ``unsupported``.
 """
 
 import dataclasses
@@ -309,26 +310,41 @@ def test_max_display_boost_weights_the_gain():
 
 
 def test_unsupported_decode_shapes_raise():
+    """The streams that only the general path takes (here a base marked
+    progressive, a map that does not divide the image, and
+    ``use_fused=False``) decode through ``JpegR.decode`` within the
+    contract of the JAX package's decode; the device-resident decode has
+    no general path and raises ``unsupported`` for them, as the JAX
+    package's does (tests/test_torch_decode_general.py holds every stream
+    kind)."""
     data = _files("default")["port"]
-
-    def unsupported(fn):
-        with pytest.raises(port.UhdrError) as e:
-            fn()
-        assert e.value.code == \
-            port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-        assert "ROADMAP" in str(e.value)
-
     jr = port.JpegR(device="cpu")
-    unsupported(lambda: jr.decode(data, use_fused=False))
     # a device-resident decode gives HDR outputs only, as in the JAX
     # package (SRGB output is JpegR.decode's, tests/test_torch_decode_batch)
     with pytest.raises(port.UhdrError) as e:
         jr.decode_to_device(data, port.ColorTransfer.SRGB)
     assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-    # a progressive base (SOF2 in place of SOF0)
     primary, _ = jr.extract_primary_and_gainmap(data)
     sof = data.index(b"\xff\xc0")
     assert sof < len(primary)
-    unsupported(lambda: jr.decode(data[:sof] + b"\xff\xc2" + data[sof + 2:]))
-    # a gain map that does not divide the image (the fractional path)
-    unsupported(lambda: jr.decode(_files("benchmark", 130, 66)["port"]))
+    for what, stream, use_fused in (
+            ("use_fused=False", data, False),
+            ("a base marked progressive (SOF2 in place of SOF0)",
+             data[:sof] + b"\xff\xc2" + data[sof + 2:], True),
+            ("a map that does not divide the image",
+             _files("benchmark", 130, 66)["port"], True)):
+        got, _, _ = jr.decode(stream, use_fused=use_fused)
+        want, _, _ = jax_jpegr.JpegR().decode(stream, use_fused=use_fused)
+        testing.check_decoded_close(got.planes[0],
+                                    np.asarray(want.planes[0]),
+                                    port.ColorTransfer.HLG, what)
+        if use_fused:
+            codes = []
+            for fn in (lambda: jr.decode_to_device(stream, microbatch=False),
+                       lambda: jax_jpegr.JpegR().decode_to_device(
+                           stream, microbatch=False)):
+                with pytest.raises(Exception) as e:
+                    fn()
+                codes.append(int(e.value.code))
+            assert codes == [int(
+                port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE)] * 2

@@ -22,11 +22,13 @@ import torch
 import benchmarks
 from libultrahdr_tpu import fused as jax_fused
 from libultrahdr_tpu import jpegr as jax_jpegr
+from libultrahdr_tpu.jpeg import decoder as jax_decoder
 from libultrahdr_tpu.types import ColorTransfer, ImgFmt
 
 import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import fused as port_fused
 from libultrahdr_tpu_torch import testing
+from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpeg import device_entropy as port_de
 from libultrahdr_tpu_torch.jpeg import pack_kernel as port_pk
 
@@ -187,8 +189,10 @@ def test_encoder_lifecycle_and_validation():
 
 def test_other_hdr_formats_raise_unsupported():
     """Every API-0 HDR format is ported, and an SDR intent beside the HDR
-    one now selects API-1; what is not ported is a progressive compressed
-    SDR intent (API-3): it raises unsupported naming ROADMAP."""
+    one selects API-1.  A compressed SDR intent marked progressive (API-3)
+    no longer raises unsupported: the general decode path reads it, as the
+    JAX package's does, and the SDR planes it reads are the JAX
+    package's."""
     rgba = testing.photo_rgba1010102(16, 16)
     enc = port.UhdrEncoder(device="cpu")
     enc.set_raw_image(rgba, port.ImgLabel.HDR)
@@ -199,11 +203,15 @@ def test_other_hdr_formats_raise_unsupported():
     testing.read_jpegr(enc.encode())
     base, _, _ = testing.read_jpegr(enc.encode())
     sof = base.index(b"\xff\xc0")
+    marked = base[:sof] + b"\xff\xc2" + base[sof + 2:]
     enc = port.UhdrEncoder(device="cpu")
     enc.set_raw_image(rgba, port.ImgLabel.HDR)
-    enc.set_compressed_image(port.CompressedImage(
-        base[:sof] + b"\xff\xc2" + base[sof + 2:]), port.ImgLabel.SDR)
-    with pytest.raises(port.UhdrError) as e:
-        enc.encode()
-    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-    assert "ROADMAP" in str(e.value)
+    enc.set_compressed_image(port.CompressedImage(marked), port.ImgLabel.SDR)
+    primary, _, _ = testing.read_jpegr(enc.encode())
+    assert jax_decoder.parse_jpeg(primary).progressive
+    want, wfmt = jax_decoder.decode_to_planes(marked)
+    got, gfmt = port_decoder.decode_to_planes(marked, None,
+                                              torch.device("cpu"))
+    assert int(gfmt) == int(wfmt)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -20,10 +20,12 @@ P3 ICC profile.  The port runs on the CPU with the JAX JpegR's knobs.
   decoded on the device are bit-identical to the JAX ``decode_to_planes``;
   the files decode at >= 60 dB.  API-4: the file equals the JAX file.
 - ``UhdrEncoder`` selects the API the JAX encoder selects for each set of
-  resources and raises the JAX error codes on invalid input.
+  resources and raises the JAX error codes on invalid input; API-3 takes a
+  progressive compressed SDR as the JAX encoder does.
 """
 
 import functools
+import io
 from unittest import mock
 
 import numpy as np
@@ -456,15 +458,39 @@ def test_encoder_validation_raises_the_jax_codes(case):
 
 
 def test_progressive_compressed_sdr_raises_unsupported():
-    hdr, _, _, _, comp = images()
-    sof = comp.index(b"\xff\xc0")
-    progressive = comp[:sof] + b"\xff\xc2" + comp[sof + 2:]
+    """A progressive compressed SDR intent (API-3) no longer raises: its
+    planes come from the general decode path's progressive decoder, as in
+    the JAX package.  The name is the test's from when the port refused
+    it.  A progressive JPEG of the SDR (PIL, with the P3 ICC profile)
+    gives API-3 files whose primary images are equal but for the MPF index
+    and which decode alike, from SDR planes decoded bit-exactly."""
+    Image = pytest.importorskip("PIL.Image")
+    hdr, _, sdr, _, comp = images()
+    rgb = port_decoder.decode_to_rgb(comp, None, CPU).permute(1, 2, 0)
+    buf = io.BytesIO()
+    Image.fromarray(rgb.numpy()).save(
+        buf, "JPEG", progressive=True, quality=90, subsampling=2,
+        icc_profile=Image.open(io.BytesIO(comp)).info["icc_profile"])
+    progressive = buf.getvalue()
+    assert port_decoder.parse_jpeg(progressive).progressive
+    want, wfmt = jax_decoder.decode_to_planes(progressive)
+    got, gfmt = port_decoder.decode_to_planes(progressive, None, CPU)
+    assert int(gfmt) == int(wfmt) == int(Fmt.YUV420)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     enc = port.UhdrEncoder(device="cpu")
     enc.set_raw_image(hdr, port.ImgLabel.HDR)
     enc.set_compressed_image(port.CompressedImage(progressive,
                                                   CG.DISPLAY_P3),
                              port.ImgLabel.SDR)
-    with pytest.raises(port.UhdrError) as e:
-        enc.encode()
-    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-    assert "ROADMAP" in str(e.value)
+    port_file = enc.encode()
+    jenc = jax_api.UhdrEncoder()
+    jenc.set_raw_image(to_jax(hdr), jax_types.ImgLabel.HDR)
+    jenc.set_compressed_image(jax_types.CompressedImage(
+        progressive, jax_types.ColorGamut.DISPLAY_P3), jax_types.ImgLabel.SDR)
+    jax_file = jenc.encode()
+    pp, _, _ = testing.read_jpegr(port_file)
+    jp, _, _ = testing.read_jpegr(jax_file)
+    assert without_mpf(pp) == without_mpf(jp)
+    assert port_decoder.parse_jpeg(pp).progressive
+    assert_decodes_alike(port_file, jax_file)

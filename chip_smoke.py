@@ -1623,6 +1623,484 @@ def main() -> int:
     log("phase 13 UhdrDecoder(device=\"cuda\") with "
         "UHDR_TPU_DECODE_ENGINE=host: == JpegR.decode_host, no launch")
 
+    # ---- phase 14: effects ------------------------------------------------
+    # (a) UhdrDecoder(device="cuda") with an effect queue on phase 4's two
+    # files: each HDR request one apply launch, its image and gain map equal
+    # to the port's host editor run on the same decode without effects,
+    # downloaded.  A 3-channel map's RGB888 image fails the editor's 2-D
+    # resize in both packages (tests/test_torch_effects.py), so the resizes
+    # run on the benchmark file's single-channel map only.
+    from libultrahdr_tpu_torch import api as port_api
+    from libultrahdr_tpu_torch import editor
+    from libultrahdr_tpu_torch.ops import effects_device
+
+    def effects_of(spec):
+        kinds = {"mirror": lambda d: port_api.MirrorEffect(
+                     port.MirrorDirection(d)),
+                 "rotate": port_api.RotateEffect,
+                 "crop": port_api.CropEffect, "resize": port_api.ResizeEffect}
+        return [kinds[e[0]](*e[1:]) for e in spec]
+
+    def add_effects(ctx, spec):
+        for e in spec:
+            getattr(ctx, "add_effect_" + e[0])(*e[1:])
+
+    def edit(im, spec):
+        """The port's host editor applied to a RawImage for a queue whose
+        crops lie inside the image."""
+        for e in spec:
+            if e[0] == "mirror":
+                im = editor.apply_mirror(im, port.MirrorDirection(e[1]))
+            elif e[0] == "rotate":
+                im = editor.apply_rotate(im, e[1])
+            elif e[0] == "crop":
+                im = editor.apply_crop(im, e[1], e[3], e[2] - e[1],
+                                       e[4] - e[3])
+            else:
+                im = editor.apply_resize(im, e[1], e[2])
+        return im
+
+    def gainmap_spec(spec, dw, dh, gw, gh):
+        """The gain map's queue for a display queue: crop and resize
+        coordinates divided by the dimension ratio (a float) and truncated,
+        as ultrahdr_api.cpp:275-415 scales them."""
+        out = []
+        for e in spec:
+            rw, rh = dw / gw, dh / gh
+            if e[0] == "crop":
+                g = ("crop", int(e[1] / rw), int(e[2] / rw), int(e[3] / rh),
+                     int(e[4] / rh))
+                dw, dh, gw, gh = e[2] - e[1], e[4] - e[3], g[2] - g[1], \
+                    g[4] - g[3]
+            elif e[0] == "resize":
+                g = ("resize", int(e[1] / rw), int(e[2] / rh))
+                dw, dh, gw, gh = e[1], e[2], g[1], g[2]
+            else:
+                g = e
+                if e[0] == "rotate" and e[1] in (90, 270):
+                    dw, dh, gw, gh = dh, dw, gh, gw
+            out.append(g)
+        return out
+
+    def decode_fx(data, ct, spec):
+        dec = port.UhdrDecoder(device="cuda")
+        dec.set_image(data)
+        dec.set_out_color_transfer(ct)
+        dec.set_out_img_format(fmt_of[ct])
+        add_effects(dec, spec)
+        return dec.decode(), dec.get_decoded_gainmap_image()
+
+    # crop coordinates off the scale-4 grid; a chain through a rotation
+    crop_e = ("crop", w // 38 | 1, w * 25 // 32 | 1, h // 38 | 1,
+              h * 15 // 16 | 1)
+    chain_crop = ("crop", h // 20 | 1, h * 19 // 20, w // 12 | 1,
+                  w * 11 // 12)
+    fx_cases = {  # (file, output, queue)
+        "mirror H": ("benchmark", CT.HLG, [("mirror", 1)]),
+        "mirror V": ("benchmark", CT.HLG, [("mirror", 0)]),
+        "rotate 90": ("benchmark", CT.HLG, [("rotate", 90)]),
+        "rotate 180": ("benchmark", CT.HLG, [("rotate", 180)]),
+        "rotate 270": ("benchmark", CT.HLG, [("rotate", 270)]),
+        "crop": ("benchmark", CT.HLG, [crop_e]),
+        "resize down": ("benchmark", CT.HLG, [("resize", w // 2, h // 2)]),
+        "resize up (row and column 0)": (
+            "benchmark", CT.HLG, [("resize", w + w // 24, h + h // 9)]),
+        "chain": ("benchmark", CT.HLG, [("mirror", 1), ("rotate", 90),
+                                        chain_crop, ("resize", h // 4,
+                                                     w // 4)]),
+        "chain LINEAR": ("benchmark", CT.LINEAR, [
+            ("mirror", 1), ("rotate", 90), chain_crop,
+            ("resize", h // 4, w // 4)]),
+        "default mirror H": ("default", CT.HLG, [("mirror", 1)]),
+        "default mirror V": ("default", CT.HLG, [("mirror", 0)]),
+        "default rotate 90": ("default", CT.HLG, [("rotate", 90)]),
+        "default rotate 180": ("default", CT.HLG, [("rotate", 180)]),
+        "default rotate 270": ("default", CT.HLG, [("rotate", 270)]),
+        "default crop": ("default", CT.HLG, [crop_e]),
+        "default chain": ("default", CT.HLG, [("mirror", 0), ("rotate", 270),
+                                              chain_crop]),
+        "default chain LINEAR": ("default", CT.LINEAR, [
+            ("mirror", 0), ("rotate", 270), chain_crop]),
+    }
+    zero_counts()
+    plain_fx = {}
+    for cfg in configs:
+        for ct in (CT.HLG, CT.LINEAR):
+            plain_fx[cfg, ct] = decode_fx(outputs[cfg][0], ct, [])
+    fx_out = {}
+    for what, (cfg, ct, spec) in fx_cases.items():
+        before = ak.APPLY_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fx_out[what] = decode_fx(outputs[cfg][0], ct, spec)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if ak.APPLY_KERNEL.launches != before + 1:
+            raise AssertionError(f"decoder effects {what} did not launch the "
+                                 "apply kernel exactly once")
+        out_i = fx_out[what][0]
+        log(f"phase 14 decode with effects {what} ({cfg} {ct.name}): "
+            f"{ms:.1f} ms, {w * h / ms / 1e3:.2f} MP/s, {out_i.w}x{out_i.h} "
+            f"{Fmt(out_i.fmt).name} | {card}")
+    n_fx = len(plain_fx) + len(fx_cases)
+    n_fx_linear = 2 + sum(ct == CT.LINEAR for _, ct, _ in fx_cases.values())
+    fx_dec_launches = read_counts("decoder effects", {
+        "apply_gainmap": n_fx, "apply_linear": n_fx_linear})
+    for what, (cfg, ct, spec) in fx_cases.items():
+        base_i, base_gm = plain_fx[cfg, ct]
+        want_i = edit(base_i, spec)
+        want_gm = edit(base_gm, gainmap_spec(spec, base_i.w, base_i.h,
+                                             base_gm.w, base_gm.h))
+        got_i, got_gm = fx_out[what]
+        for part, got_p, want_p in (("image", got_i, want_i),
+                                    ("gain map", got_gm, want_gm)):
+            if (got_p.w, got_p.h, got_p.fmt) != (want_p.w, want_p.h,
+                                                  want_p.fmt) or \
+                    not np.array_equal(got_p.planes[0], want_p.planes[0]):
+                raise AssertionError(f"decoder effects {what}: {part} != the "
+                                     "host editor on the plain decode")
+    log(f"phase 14 checks: {len(fx_cases)} decodes with effects, image and "
+        "gain map each == the port's host editor on the decode without "
+        "effects, bit for bit")
+
+    # (b) decode_to_device(effects=...) on the per-image route and through
+    # the microbatcher (four callers, four queues): CUDA tensors owning
+    # their storage, each equal to the host editor on the plain output
+    def owns(t):
+        return t.is_cuda and t.is_contiguous() and t.storage_offset() == 0 \
+            and t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+    jr_fx = port.JpegR(device="cuda")
+    dev_cases = [("benchmark", CT.HLG, []), ("benchmark", CT.LINEAR, []),
+                 ("benchmark", CT.HLG, fx_cases["chain"][2]),
+                 ("benchmark", CT.LINEAR, [("rotate", 180),
+                                           ("resize", w // 2, h // 2)]),
+                 ("default", CT.HLG, [("mirror", 0), crop_e])]
+    zero_counts()
+    dev_out = []
+    for cfg, ct, spec in dev_cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed, _ = jr_fx.decode_to_device(outputs[cfg][0], ct,
+                                           effects=effects_of(spec),
+                                           microbatch=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dev_out.append(packed)
+        log(f"phase 14 decode_to_device per image {cfg} {ct.name}, "
+            f"{len(spec)} effects: {ms:.1f} ms, {w * h / ms / 1e3:.2f} MP/s, "
+            f"{tuple(packed.shape)} {packed.dtype} on {packed.device} | "
+            f"{card}")
+    mb_specs = [[("rotate", 90)], [("mirror", 1), crop_e],
+                [("resize", w // 2, h // 2)], fx_cases["chain"][2]]
+    jr_mb = port.JpegR(device="cuda")
+    jr_mb._mb = jpegr._DeviceDecodeMicrobatcher(window_s=2.0, max_k=4)
+    mb_out = [None] * 4
+    meet_fx = threading.Barrier(4)
+
+    def caller_fx(i):
+        meet_fx.wait()
+        mb_out[i] = jr_mb.decode_to_device(outputs["benchmark"][0], CT.HLG,
+                                           effects=effects_of(mb_specs[i]))
+
+    threads = [threading.Thread(target=caller_fx, args=(i,))
+               for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    mb_fx_ms = (time.perf_counter() - t0) * 1e3
+    fx_dev_launches = read_counts("decode_to_device with effects", {
+        "apply_gainmap": len(dev_cases) + 4,
+        "apply_linear": sum(ct == CT.LINEAR for _, ct, _ in dev_cases)})
+    if None in mb_out or (jr_mb._mb.batches, jr_mb._mb.retries) != (1, 0):
+        raise AssertionError(f"effects through the microbatcher: "
+                             f"{jr_mb._mb.batches} batch dispatches, "
+                             f"{jr_mb._mb.retries} retries")
+    for (cfg, ct, spec), got in [*zip(dev_cases, dev_out), *(
+            (("benchmark", CT.HLG, s), o[0]) for s, o in zip(mb_specs,
+                                                             mb_out))]:
+        if not owns(got):
+            raise AssertionError(f"decode_to_device {cfg} {spec}: not a "
+                                 "CUDA tensor owning its storage")
+        want = edit(plain_fx[cfg, ct][0], spec).planes[0]
+        if not np.array_equal(testing.host_packed(got), want):
+            raise AssertionError(f"decode_to_device {cfg} {ct.name} {spec}: "
+                                 "!= the host editor on the plain output")
+    log(f"phase 14 4 concurrent decode_to_device callers with 4 effect "
+        f"queues: one batch dispatch of 4, no retry, {mb_fx_ms:.1f} ms; "
+        f"every device-resident output a CUDA tensor owning its storage, == "
+        f"the host editor on the plain output | {card}")
+
+    # the device effects alone on the 4K packed outputs (CUDA events);
+    # bound: the bytes the effect must read and write over 3.35 TB/s
+    for packed, ct in ((dev_out[0], CT.HLG), (dev_out[1], CT.LINEAR)):
+        for what, fn in (
+                ("mirror H", lambda: effects_device.mirror_packed(
+                    packed, port.MirrorDirection.HORIZONTAL)),
+                ("rotate 90", lambda: effects_device.rotate_packed(
+                    packed, 90)),
+                ("rotate 180", lambda: effects_device.rotate_packed(
+                    packed, 180)),
+                ("crop", lambda: effects_device.crop_packed(
+                    packed, crop_e[1], crop_e[3], crop_e[2] - crop_e[1],
+                    crop_e[4] - crop_e[3])),
+                ("resize down", lambda: effects_device.resize_packed(
+                    packed, w // 2, h // 2))):
+            # each output pixel is one pixel of the input, read once
+            moved = 2 * nbytes(fn())
+            fx_ms = [cuda_ms(fn, 20) for _ in range(2)]
+            b_ms, _ = bound(moved, 0)
+            log(f"phase 14 device effect {what} {ct.name} on "
+                f"{tuple(packed.shape)} {packed.dtype}: "
+                f"{fx_ms[0]:.4f}/{fx_ms[1]:.4f} ms (CUDA events), bound "
+                f"{b_ms:.4f} ms ({moved / 1e6:.1f} MB read and written), "
+                f"{moved / fx_ms[1] / 1e6:.0f} GB/s | {card}")
+
+    # (c) UhdrEncoder(device="cuda") with effects: a rotated 4K P010 (a
+    # 2160x3840 file), a crop with a mirror, and one API-1 request; each one
+    # pack launch, each file checked as in phase 4 against the intents
+    # edited beforehand on the host
+    enc_crop = ("crop", w // 60 & ~1, w * 17 // 20 & ~1, h // 54 & ~1,
+                h * 25 // 27 & ~1)
+    enc_cases = {  # (configuration, queue, with the SDR intent)
+        "P010 rotate 90": ("benchmark", [("rotate", 90)], False),
+        "P010 crop + mirror": ("default", [enc_crop, ("mirror", 1)], False),
+        "API-1 P010+YUV420 rotate 270 + crop REALTIME": (
+            "benchmark", [("rotate", 270), ("crop", h // 54 & ~1,
+                                            h * 25 // 27 & ~1, 0, w)], True)}
+    zero_counts()
+    enc_fx = {}
+    for what, (cfg, spec, with_sdr) in enc_cases.items():
+        kw = configs[cfg]
+        before = pk.PACK_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = port.UhdrEncoder(device="cuda")
+        enc.set_raw_image(img, port.ImgLabel.HDR)
+        if with_sdr:
+            enc.set_raw_image(sdr_img, port.ImgLabel.SDR)
+            enc.set_preset(port.EncPreset.REALTIME)
+        enc.set_quality(95, port.ImgLabel.BASE)
+        enc.set_gainmap_scale_factor(kw["scale"])
+        enc.set_using_multi_channel_gainmap(kw["multichannel"])
+        add_effects(enc, spec)
+        enc_fx[what] = enc.encode()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if pk.PACK_KERNEL.launches != before + 1:
+            raise AssertionError(f"{what} did not launch the pack kernel "
+                                 "exactly once")
+        log(f"phase 14 encode with effects {what} ({cfg}): {ms:.1f} ms, "
+            f"{w * h / ms / 1e3:.2f} MP/s, {len(enc_fx[what])} bytes | "
+            f"{card}")
+    fx_enc_launches = read_counts("encoder effects",
+                                  {"pack_scan": len(enc_cases)})
+    for what, (cfg, spec, with_sdr) in enc_cases.items():
+        edited = edit(img, spec)
+        info = jr_fx.get_info(enc_fx[what])
+        if (info["width"], info["height"]) != (edited.w, edited.h):
+            raise AssertionError(f"{what}: a {info['width']}x"
+                                 f"{info['height']} file, not "
+                                 f"{edited.w}x{edited.h}")
+        if with_sdr:
+            check_api1(enc_fx[what], edited, edit(sdr_img, spec),
+                       configs[cfg], port.EncPreset.REALTIME, what)
+        else:
+            check_encode(enc_fx[what], edited, configs[cfg],
+                         fused._api0_p010_block_buffers,
+                         [np.asarray(p, np.uint16)
+                          for p in edited.planes[:2]],
+                         fused.encode_api0_p010_fused, what,
+                         rng=port.ColorRange.FULL)
+
+    # ---- phase 15: AGTM ----------------------------------------------------
+    # generate_gainmap_agtm (SMPTE 2094-50, two rules) of the 4K P010 and its
+    # RGBA1010102 twin on the card against the port on the CPU (the u8
+    # contract), the P010 map compressed on the card and wrapped with the
+    # tone-mapped base through API-4, and that file decoded to HLG: one
+    # apply launch (a scale-1 3-channel map), bit-identical to the plain
+    # apply on the card run on the decode's own stage outputs
+    from libultrahdr_tpu_torch import agtm
+    agtm_md = agtm.DynamicMetadata(0.0, [
+        agtm.GainCurveRule(1.0, agtm.ComponentMix(component=1.0),
+                           [(0.0, 0.0), (1.0, 1.0)]),
+        agtm.GainCurveRule(3.0, agtm.ComponentMix(rgb=(0.25, 0.4, 0.1),
+                                                  max=0.3, min=0.2),
+                           [(0.0, 0.0), (0.5, 2.5), (1.0, 3.0)])])
+    agtm_maps = {}
+    for what, src in (("P010", img), ("RGBA1010102", rgb_hdr)):
+        zero_counts()
+        agtm_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gm_a, md_a = agtm.generate_gainmap_agtm(src, agtm_md)
+            torch.cuda.synchronize()
+            agtm_ms.append((time.perf_counter() - t0) * 1e3)
+        read_counts(f"AGTM {what}", {})
+        gm_cpu, md_cpu = agtm.generate_gainmap_agtm(src, agtm_md,
+                                                    device="cpu")
+        close_u8(gm_a.planes[0], gm_cpu.planes[0], f"AGTM {what}")
+        if md_a.hdr_capacity_max != md_cpu.hdr_capacity_max or \
+                gm_a.planes[0].shape != (h, w, 3):
+            raise AssertionError(f"AGTM {what}: metadata or shape differ")
+        agtm_maps[what] = (gm_a, md_a)
+        log(f"phase 15 AGTM {what}: {agtm_ms[0]:.1f} / {agtm_ms[1]:.1f} ms "
+            f"on the card ({w * h / agtm_ms[1] / 1e3:.2f} MP/s), RGB888 map "
+            f"within 1 LSB on <= 1e-3 of the samples of the CPU port's, "
+            f"capacity {md_a.hdr_capacity_max:g} | {card}")
+    jr_a = port.JpegR(device="cuda")
+    gm_a, md_a = agtm_maps["P010"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agtm_gm_jpeg = jr_a.compress_gainmap(gm_a)
+    agtm_base = JpegEncoder(dev).compress(jr_a.tone_map(img), 95,
+                                          icc=icc_p3)
+    enc = port.UhdrEncoder(device="cuda")
+    enc.set_compressed_image(port.CompressedImage(agtm_base, CG.DISPLAY_P3),
+                             port.ImgLabel.BASE)
+    enc.set_gainmap_image(port.CompressedImage(agtm_gm_jpeg), md_a)
+    agtm_file = enc.encode()
+    torch.cuda.synchronize()
+    wrap_ms = (time.perf_counter() - t0) * 1e3
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agtm_dec, _ = decode_fx(agtm_file, CT.HLG, [])
+    torch.cuda.synchronize()
+    agtm_dec_ms = (time.perf_counter() - t0) * 1e3
+    agtm_launches = read_counts("AGTM file decode", {"apply_gainmap": 1})
+    primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
+        jr_a._parse_jpegr(agtm_file)
+    plan = jr_a._fused_plan(pinfo, gm_info, md, sdr_cg, gm_cg)
+    if plan is None or (plan["scale_k"], plan["gm_channels"]) != (1, 3):
+        raise AssertionError(f"AGTM file: not a fused scale-1 3-channel "
+                             f"decode ({plan})")
+    base = fused.decode_coefficients(primary, pinfo)
+    gmap = fused.decode_coefficients(gm_jpeg, gm_info)
+    sdr_yuv, gm_u8 = fused._decode_sdr_and_gain(
+        fused.upload_coeff_planes(base[0], dev), base[1],
+        fused.upload_coeff_planes(gmap[0], dev), gmap[1], h=h, w=w,
+        sampling_key=plan["sampling_key"], gm_channels=3, scale_k=1)
+    p_out = ak.apply_gainmap_plain(
+        sdr_yuv, apply_ops._gain_to_float(gm_u8).contiguous(),
+        ak.meta_to_rows(apply_ops.metadata_to_arrays(md)),
+        np.float32(apply_ops.gainmap_weight(
+            jpegr.FLT_MAX, float(md.hdr_capacity_min),
+            float(md.hdr_capacity_max))), out_ct=CT.HLG,
+        sdr_cg=plan["sdr_cg"], hdr_cg=plan["hdr_cg"],
+        use_base_cg=plan["use_base_cg"])
+    apply_err = max(apply_err, bit_identical(
+        agtm_dec.planes[0], p_out, "AGTM file decode vs plain apply"))
+    log(f"phase 15 AGTM JPEG_R: map compressed, base tone-mapped and "
+        f"compressed, API-4 wrap {wrap_ms:.1f} ms ({len(agtm_file)} bytes); "
+        f"HLG decode {agtm_dec_ms:.1f} ms, one apply launch on a "
+        f"{gm_info.width}x{gm_info.height} 3-channel map, == plain apply on "
+        f"its stage outputs, bit-identical | {card}")
+
+    # ---- phase 16: the public API modules ---------------------------------
+    # JpegRCompat (the legacy API, Android knobs), cli.main (the
+    # ultrahdr_app analog, through a temporary directory) and capi_bridge
+    # (from ctypes addresses of the 4K planes), all on their default device,
+    # the card: each encode one pack launch, each decode one apply launch,
+    # each result equal to the direct API call on the card
+    import tempfile
+    from libultrahdr_tpu_torch import capi_bridge, cli, jpegr_compat
+    y_p, uv_p = (np.ascontiguousarray(p, np.uint16) for p in img.planes[:2])
+    legacy = jpegr_compat.JpegRUncompressed(
+        data=np.concatenate([y_p.reshape(-1), uv_p.reshape(-1)]), width=w,
+        height=h, color_gamut=jpegr_compat.UltrahdrColorGamut.BT2100,
+        color_range=port.ColorRange(img.range))
+    legacy_dest = jpegr_compat.JpegRCompressed(data=bytearray(1 << 26),
+                                               max_length=1 << 26)
+    public_ms = {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        public_ms[what] = (time.perf_counter() - t0) * 1e3
+        log(f"phase 16 {what}: {public_ms[what]:.1f} ms, "
+            f"{w * h / public_ms[what] / 1e3:.2f} MP/s | {card}")
+        return out
+
+    tmp = tempfile.TemporaryDirectory()
+    tmpd = pathlib.Path(tmp.name)
+    (tmpd / "in.p010").write_bytes(y_p.tobytes() + uv_p.tobytes())
+    cli_enc = ["-m", "0", "-p", str(tmpd / "in.p010"), "-w", str(w), "-h",
+               str(h), "-a", "0", "-C", "2", "-t", "1", "-R", "1", "-s", "4",
+               "-M", "0", "-z", str(tmpd / "cli.jpg")]
+    zero_counts()
+    st = timed("JpegRCompat encode_api0", lambda: jpegr_compat.JpegRCompat(
+        ).encode_api0(legacy, jpegr_compat.UltrahdrTransferFunction.HLG,
+                      legacy_dest))
+    if st != jpegr_compat.Status.JPEGR_NO_ERROR:
+        raise AssertionError(f"JpegRCompat encode_api0: status {st}")
+    legacy_blob = bytes(legacy_dest.data[:legacy_dest.length])
+    legacy_out = jpegr_compat.JpegRUncompressed(
+        data=np.zeros(w * h, np.uint32))
+    st = timed("JpegRCompat decode_jpegr HDR_HLG",
+               lambda: jpegr_compat.JpegRCompat().decode_jpegr(
+                   jpegr_compat.JpegRCompressed(
+                       data=bytearray(legacy_blob), length=len(legacy_blob)),
+                   legacy_out,
+                   output_format=jpegr_compat.UltrahdrOutputFormat.HDR_HLG))
+    if st != jpegr_compat.Status.JPEGR_NO_ERROR:
+        raise AssertionError(f"JpegRCompat decode_jpegr: status {st}")
+    if timed("cli encode (-m 0)", lambda: cli.main(cli_enc)) != 0 or timed(
+            "cli decode (-m 1)", lambda: cli.main([
+                "-m", "1", "-j", str(tmpd / "cli.jpg"), "-o", "1", "-O", "5",
+                "-z", str(tmpd / "cli.raw")])) != 0:
+        raise AssertionError("cli.main failed")
+
+    def bridge_encode():
+        enc_b = capi_bridge.enc_new()
+        capi_bridge.enc_set_raw_image(
+            enc_b, int(Fmt.P010), int(CG.BT2100), int(CT.HLG),
+            int(img.range), w, h, [y_p.ctypes.data, uv_p.ctypes.data],
+            [w, w], int(port.ImgLabel.HDR))
+        enc_b.set_gainmap_scale_factor(4)
+        enc_b.set_using_multi_channel_gainmap(False)
+        enc_b.encode()
+        return capi_bridge.enc_get_stream(enc_b)
+
+    bridge_file = timed("capi_bridge encode", bridge_encode)
+    public_launches = read_counts("compat, CLI and bridge", {
+        "pack_scan": 3, "apply_gainmap": 2})
+    # the direct API calls on the card
+    direct = port.JpegR(device="cuda", map_dimension_scale_factor=4,
+                        map_compress_quality=85,
+                        use_multi_channel_gainmap=False,
+                        preset=port.EncPreset.REALTIME).encode_api0(img, 95)
+    if legacy_blob != direct:
+        raise AssertionError("JpegRCompat encode_api0 != JpegR.encode_api0")
+    direct_dec = port.JpegR(device="cuda").decode(legacy_blob, CT.HLG)[0]
+    if not np.array_equal(legacy_out.data.reshape(h, w),
+                          direct_dec.planes[0]):
+        raise AssertionError("JpegRCompat decode_jpegr != JpegR.decode")
+    enc = port.UhdrEncoder(device="cuda")
+    enc.set_raw_image(img, port.ImgLabel.HDR)
+    enc.set_gainmap_scale_factor(4)
+    enc.set_using_multi_channel_gainmap(False)
+    cli_file = (tmpd / "cli.jpg").read_bytes()
+    if cli_file != enc.encode() or bridge_file != outputs["benchmark"][0]:
+        raise AssertionError("cli or capi_bridge encode != UhdrEncoder")
+    dec = port.UhdrDecoder(device="cuda")
+    dec.set_image(cli_file)
+    dec.set_out_color_transfer(CT.HLG)
+    dec.set_out_img_format(Fmt.RGBA1010102)
+    if (tmpd / "cli.raw").read_bytes() != dec.decode().planes[0].tobytes():
+        raise AssertionError("cli decode != UhdrDecoder")
+    tmp.cleanup()
+    log(f"phase 16 checks: JpegRCompat encode == JpegR.encode_api0 (Android "
+        f"knobs), its HLG decode == JpegR.decode; cli encode and decode == "
+        f"UhdrEncoder / UhdrDecoder; capi_bridge encode from ctypes "
+        f"addresses == UhdrEncoder, all on the card | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -1640,19 +2118,24 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
+    slice9 = (fx_dec_launches, fx_dev_launches, agtm_launches,
+              public_launches)
     linear = apply_launches["apply_linear"] \
         + batch_launches[CT.LINEAR]["apply_linear"] \
-        + general_launches["apply_linear"] + host_launches["apply_linear"]
+        + general_launches["apply_linear"] + host_launches["apply_linear"] \
+        + sum(c["apply_linear"] for c in slice9)
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
-        + host_launches["apply_gainmap"] - linear
+        + host_launches["apply_gainmap"] \
+        + sum(c["apply_gainmap"] for c in slice9) - linear
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
                + api1_launches["pack_scan"]
                + compressed_launches["pack_scan"] + pipe_launches
-               + general_input_launches["pack_scan"],
+               + general_input_launches["pack_scan"]
+               + fx_enc_launches["pack_scan"] + public_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",

@@ -14,8 +14,12 @@ grayscale streams, fractional and resized gain maps) and the SRGB /
 RGBA8888 output (``UhdrDecoder(device=...)``, ``JpegR.decode``), the native
 host decode engine (``JpegR.decode_host``), the device-resident decode per
 image, batched and microbatched (``JpegR.decode_to_device``,
-``decode_to_device_batch``), and ``is_uhdr_image``; ROADMAP.md lists the
-slices still to come.
+``decode_to_device_batch``, with effects on the device), the effect queue
+and ``enable_gpu_acceleration`` of both, ``is_uhdr_image``, the SMPTE
+2094-50 gain map (``agtm``), the legacy JPEGR surface (``jpegr_compat``),
+the ``ultrahdr_app`` analog (``cli``), the C-ABI marshaling layer
+(``capi_bridge``) and the stage timers (``utils``); ROADMAP.md lists what
+is still to come (the batch over several GPUs).
 
 The tensor math runs in full float32: TF32 matrix products and convolutions
 are turned off here, because the JAX package runs its DCT at HIGHEST
@@ -32,6 +36,8 @@ torch.backends.cudnn.allow_tf32 = False
 from .errors import UhdrError, UhdrErrorCode  # noqa: E402,F401
 from .types import (Codec, ColorGamut, ColorRange,  # noqa: E402,F401
                     ColorTransfer, CompressedImage, EncPreset,
-                    GainMapMetadata, ImgFmt, ImgLabel, RawImage)
-from .api import UhdrDecoder, UhdrEncoder  # noqa: E402,F401
+                    GainMapMetadata, ImgFmt, ImgLabel, MirrorDirection,
+                    RawImage, alloc_raw_image)
+from .api import (UhdrDecoder, UhdrEncoder,  # noqa: E402,F401
+                  validate_gainmap_metadata)
 from .jpegr import JpegR, is_uhdr_image  # noqa: E402,F401

@@ -8,9 +8,18 @@ Port of the encoder and the decoder of ``libultrahdr_tpu/api.py``
 (ultrahdrcommon.h:364), then getters, then ``reset()`` to reuse.  The
 encoder selects API 0-4 from the resources that are set, as the reference
 does.  The decoder gives every output of the reference: HLG and PQ as
-RGBA1010102, LINEAR as RGBAF16 and SRGB as RGBA8888.  Effects
-(``add_effect_*``) and ``enable_gpu_acceleration`` come with a later slice
-(ROADMAP.md, Queue 1 item 11).
+RGBA1010102, LINEAR as RGBAF16 and SRGB as RGBA8888.
+
+The effect queue (``add_effect_mirror/rotate/crop/resize``,
+ultrahdr_api.cpp:117-269 on the encode side, :275-415 on the decode side)
+runs on the host with the port's ``editor``, as in the JAX package: the
+encoder edits its raw intents before API-0/1, the decoder edits its output
+and its gain map, scaling crop and resize coordinates by their dimension
+ratio.  ``enable_gpu_acceleration(False)`` selects the general path
+(``use_fused=False``) of the encodes and the decode; either way the work
+stays on the context's device.  ``JpegR.decode_to_device(effects=...)``
+applies the same queue to the packed output on the device
+(``ops/effects_device``).
 
     enc = UhdrEncoder()                 # the card; device="cpu" asks for the CPU
     enc.set_raw_image(hdr, ImgLabel.HDR)
@@ -26,9 +35,11 @@ RGBA1010102, LINEAR as RGBAF16 and SRGB as RGBA8888.  Effects
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
+from . import editor
 from .errors import (UhdrError, UhdrErrorCode, invalid_operation,
                      invalid_param, unsupported)
 from .jpeg.decoder import parse_jpeg
@@ -39,11 +50,91 @@ from .jpegr import (DEFAULT_ENC_PRESET, DEFAULT_GAINMAP_GAMMA,
                     resolve_device)
 from .types import (Codec, ColorGamut, ColorRange, ColorTransfer,
                     CompressedImage, EncPreset, GainMapMetadata, ImgFmt,
-                    ImgLabel, MIN_HEIGHT, MIN_WIDTH, RawImage,
-                    UHDR_MAX_DIMENSION)
+                    ImgLabel, MIN_HEIGHT, MIN_WIDTH, MirrorDirection,
+                    RawImage, UHDR_MAX_DIMENSION)
 
-_SAILED = ("An earlier call to encode/decode has sailed the context; "
-           "reset to reuse")
+
+# ---------------------------------------------------------------------------
+# effects
+
+@dataclasses.dataclass
+class MirrorEffect:
+    direction: MirrorDirection
+
+
+@dataclasses.dataclass
+class RotateEffect:
+    degrees: int
+
+
+@dataclasses.dataclass
+class CropEffect:
+    left: int
+    right: int
+    top: int
+    bottom: int
+
+
+@dataclasses.dataclass
+class ResizeEffect:
+    width: int
+    height: int
+
+
+def _apply_effect(effect, img: RawImage) -> RawImage:
+    if isinstance(effect, MirrorEffect):
+        return editor.apply_mirror(img, effect.direction)
+    if isinstance(effect, RotateEffect):
+        return editor.apply_rotate(img, effect.degrees)
+    raise invalid_param(f"unsupported effect {effect}")
+
+
+class _Context:
+    """What the encoder and the decoder share (uhdr_codec_private,
+    ultrahdrcommon.h:358-376): the device, the sailed state, the effect
+    queue and the accelerated-path switch."""
+
+    def __init__(self, *, device="cuda"):
+        self.device = resolve_device(device)
+        self._gpu = True
+        self._reset_state()
+
+    def _check_not_sailed(self):
+        if self._sailed:
+            raise invalid_operation(
+                "An earlier call to encode/decode has sailed the context; "
+                "reset to reuse")
+
+    def enable_gpu_acceleration(self, enable: bool):
+        """uhdr_enable_gpu_acceleration (ultrahdr_api.h:242).  Enabled (the
+        default) selects the fused programs; disabled, the general path
+        (``use_fused=False``) of the encodes and the decode, on the same
+        device, as in the JAX package."""
+        self._check_not_sailed()
+        self._gpu = bool(enable)
+
+    def add_effect_mirror(self, direction):
+        self._check_not_sailed()
+        try:
+            direction = MirrorDirection(direction)
+        except ValueError:
+            raise invalid_param(f"invalid mirror direction {direction}")
+        self._effects.append(MirrorEffect(direction))
+
+    def add_effect_rotate(self, degrees: int):
+        self._check_not_sailed()
+        if degrees not in (90, 180, 270):
+            raise invalid_param(f"unsupported rotation degrees {degrees}")
+        self._effects.append(RotateEffect(int(degrees)))
+
+    def add_effect_crop(self, left: int, right: int, top: int, bottom: int):
+        self._check_not_sailed()
+        self._effects.append(CropEffect(int(left), int(right), int(top),
+                                        int(bottom)))
+
+    def add_effect_resize(self, width: int, height: int):
+        self._check_not_sailed()
+        self._effects.append(ResizeEffect(int(width), int(height)))
 
 
 def _validate_raw_image(img: RawImage, intent: ImgLabel):
@@ -112,7 +203,7 @@ def validate_gainmap_metadata(m: GainMapMetadata):
             raise invalid_param("hdr capacity min must be >= 1")
 
 
-class UhdrEncoder:
+class UhdrEncoder(_Context):
     """uhdr_create_encoder + uhdr_enc_* (ultrahdr_api.h:286-591), on
     `device` (the card unless the caller asks for the CPU).
 
@@ -123,12 +214,9 @@ class UhdrEncoder:
         data = enc.encode()
     """
 
-    def __init__(self, *, device="cuda"):
-        self.device = resolve_device(device)
-        self._reset_state()
-
     def _reset_state(self):
         self._sailed = False
+        self._effects = []
         self._raw: dict[ImgLabel, RawImage] = {}
         self._compressed: dict[ImgLabel, CompressedImage] = {}
         self._gainmap_metadata: GainMapMetadata | None = None
@@ -145,10 +233,6 @@ class UhdrEncoder:
         self._output_format = Codec.JPG
         self._output: bytes | None = None
         self._encode_error: UhdrError | None = None
-
-    def _check_not_sailed(self):
-        if self._sailed:
-            raise invalid_operation(_SAILED)
 
     # -- setters ---------------------------------------------------------
 
@@ -250,6 +334,38 @@ class UhdrEncoder:
 
     # -- encode ----------------------------------------------------------
 
+    def _apply_encoder_effects(self):
+        """apply_effects on the raw intents (ultrahdr_api.cpp:117-269), on
+        the host."""
+        for eff in self._effects:
+            for label in list(self._raw):
+                img = self._raw[label]
+                if isinstance(eff, CropEffect):
+                    left = max(0, eff.left)
+                    right = min(img.w, eff.right)
+                    top = max(0, eff.top)
+                    bottom = min(img.h, eff.bottom)
+                    if right <= left or bottom <= top:
+                        raise invalid_param(
+                            f"invalid crop {left},{right},{top},{bottom}")
+                    self._raw[label] = editor.apply_crop(
+                        img, left, top, right - left, bottom - top)
+                elif isinstance(eff, ResizeEffect):
+                    if (eff.width <= 0 or eff.height <= 0
+                            or eff.width > UHDR_MAX_DIMENSION
+                            or eff.height > UHDR_MAX_DIMENSION):
+                        raise invalid_param(
+                            f"invalid resize {eff.width}x{eff.height}")
+                    self._raw[label] = editor.apply_resize(
+                        img, eff.width, eff.height)
+                else:
+                    self._raw[label] = _apply_effect(eff, img)
+
+    def _check_no_effects(self):
+        if self._effects:
+            raise invalid_operation(
+                "effects are not supported with compressed intents")
+
     def encode(self) -> bytes:
         """uhdr_encode (ultrahdr_api.cpp:1173-1310): sail the context,
         select API 0-4 by which resources are set, run JpegR; a second call
@@ -280,21 +396,29 @@ class UhdrEncoder:
         has_sdr_comp = ImgLabel.SDR in self._compressed
         if ImgLabel.BASE in self._compressed \
                 and ImgLabel.GAIN_MAP in self._compressed:
+            self._check_no_effects()
             return jr.encode_api4(self._compressed[ImgLabel.BASE],
                                   self._compressed[ImgLabel.GAIN_MAP],
                                   self._gainmap_metadata)
         if ImgLabel.HDR not in self._raw:
             raise invalid_operation(
                 "resources required for encoding are not set")
-        hdr = self._raw[ImgLabel.HDR]
         if not has_sdr_raw and not has_sdr_comp:
-            return jr.encode_api0(hdr, base_q, self._exif)
+            self._apply_encoder_effects()
+            return jr.encode_api0(self._raw[ImgLabel.HDR], base_q,
+                                  self._exif, use_fused=self._gpu)
         if has_sdr_comp and not has_sdr_raw:
-            return jr.encode_api3(hdr, self._compressed[ImgLabel.SDR])
+            self._check_no_effects()
+            return jr.encode_api3(self._raw[ImgLabel.HDR],
+                                  self._compressed[ImgLabel.SDR])
         if has_sdr_raw and not has_sdr_comp:
-            return jr.encode_api1(hdr, self._raw[ImgLabel.SDR], base_q,
-                                  self._exif)
-        return jr.encode_api2(hdr, self._raw[ImgLabel.SDR],
+            self._apply_encoder_effects()
+            return jr.encode_api1(self._raw[ImgLabel.HDR],
+                                  self._raw[ImgLabel.SDR], base_q,
+                                  self._exif, use_fused=self._gpu)
+        self._check_no_effects()
+        return jr.encode_api2(self._raw[ImgLabel.HDR],
+                              self._raw[ImgLabel.SDR],
                               self._compressed[ImgLabel.SDR])
 
     def get_encoded_stream(self) -> bytes | None:
@@ -306,18 +430,15 @@ class UhdrEncoder:
         self._reset_state()
 
 
-class UhdrDecoder:
+class UhdrDecoder(_Context):
     """uhdr_create_decoder + uhdr_dec_* (ultrahdr_api.h:598-830), on
     `device` (the card unless the caller asks for the CPU).  Defaults as the
     reference: RGBAF16 output, LINEAR transfer, max display boost
     FLT_MAX."""
 
-    def __init__(self, *, device="cuda"):
-        self.device = resolve_device(device)
-        self._reset_state()
-
     def _reset_state(self):
         self._sailed = False
+        self._effects = []
         self._data: bytes | None = None
         self._output_fmt = ImgFmt.RGBAF16
         self._output_ct = ColorTransfer.LINEAR
@@ -327,10 +448,6 @@ class UhdrDecoder:
         self._info: dict = {}
         self._decoded: RawImage | None = None
         self._gainmap_img: RawImage | None = None
-
-    def _check_not_sailed(self):
-        if self._sailed:
-            raise invalid_operation(_SAILED)
 
     # -- setters ---------------------------------------------------------
 
@@ -446,7 +563,9 @@ class UhdrDecoder:
         outputs, raising ``unsupported`` for the streams it does not take,
         with no retry.  Unlike the JAX package's ``auto``, which tries the
         host engine first (a slow TPU link made it the faster one), ``auto``
-        stays on the device."""
+        stays on the device.  ``enable_gpu_acceleration(False)`` takes the
+        general path whatever the engine.  The effect queue then edits the
+        output and the gain map on the host (``_apply_decoder_effects``)."""
         if self._sailed:
             return self._decoded
         self.probe()
@@ -461,7 +580,7 @@ class UhdrDecoder:
                 f"transfer {ct} pair")
         jr = JpegR(device=self.device)
         engine = os.environ.get("UHDR_TPU_DECODE_ENGINE", "auto").lower()
-        if engine == "host" and ct != ColorTransfer.SRGB:
+        if self._gpu and engine == "host" and ct != ColorTransfer.SRGB:
             dest, _, gm_img = jr.decode_host(
                 self._data, output_ct=ct,
                 max_display_boost=self._max_display_boost,
@@ -470,10 +589,51 @@ class UhdrDecoder:
             dest, _, gm_img = jr.decode(
                 self._data, output_ct=ct, output_fmt=fmt,
                 max_display_boost=self._max_display_boost,
-                return_gainmap=True, use_fused=engine != "general")
+                return_gainmap=True,
+                use_fused=self._gpu and engine != "general")
         self._decoded = dest
         self._gainmap_img = gm_img
+        if self._effects:
+            self._apply_decoder_effects()
         return self._decoded
+
+    def _apply_decoder_effects(self):
+        """apply_effects after the decode (ultrahdr_api.cpp:275-415): every
+        effect edits both the output image and the gain map, crop and resize
+        coordinates scaled by the dimension ratio (floats, truncated)."""
+        for eff in self._effects:
+            disp, gm = self._decoded, self._gainmap_img
+            if isinstance(eff, CropEffect):
+                left = max(0, eff.left)
+                right = min(disp.w, eff.right)
+                top = max(0, eff.top)
+                bottom = min(disp.h, eff.bottom)
+                if right <= left or bottom <= top:
+                    raise invalid_param("invalid crop dimensions")
+                wd_ratio = disp.w / gm.w
+                ht_ratio = disp.h / gm.h
+                gm_l, gm_r = int(left / wd_ratio), int(right / wd_ratio)
+                gm_t, gm_b = int(top / ht_ratio), int(bottom / ht_ratio)
+                if gm_r <= gm_l or gm_b <= gm_t:
+                    raise invalid_param("invalid gainmap crop dimensions")
+                self._decoded = editor.apply_crop(disp, left, top,
+                                                  right - left, bottom - top)
+                self._gainmap_img = editor.apply_crop(
+                    gm, gm_l, gm_t, gm_r - gm_l, gm_b - gm_t)
+            elif isinstance(eff, ResizeEffect):
+                dst_w, dst_h = eff.width, eff.height
+                wd_ratio = disp.w / gm.w
+                ht_ratio = disp.h / gm.h
+                gm_w, gm_h = int(dst_w / wd_ratio), int(dst_h / ht_ratio)
+                if (dst_w <= 0 or dst_h <= 0 or gm_w <= 0 or gm_h <= 0
+                        or max(dst_w, dst_h, gm_w, gm_h) > UHDR_MAX_DIMENSION):
+                    raise invalid_param(
+                        f"unsupported resize dimensions {dst_w}x{dst_h}")
+                self._decoded = editor.apply_resize(disp, dst_w, dst_h)
+                self._gainmap_img = editor.apply_resize(gm, gm_w, gm_h)
+            else:
+                self._decoded = _apply_effect(eff, disp)
+                self._gainmap_img = _apply_effect(eff, gm)
 
     def get_decoded_image(self) -> RawImage | None:
         return self._decoded if self._sailed else None

@@ -2,9 +2,9 @@
 
 The port's copy of ``libultrahdr_tpu/editor.py``, kept as it is: its
 float64 bicubic and its truncations are the reference's bytes.  The decode's
-aspect-ratio resize of a gain map (``resize_channels``) uses it now; the
-effects of the encoder and decoder APIs come with ROADMAP.md Queue 1
-item 11.
+aspect-ratio resize of a gain map uses ``resize_channels``; the effect queue
+of ``api.UhdrEncoder`` (on the raw intents) and ``api.UhdrDecoder`` (on the
+output and its gain map) uses the ``apply_*`` effects.
 
 Re-design of editorhelper (reference lib/src/editorhelper.cpp):
 numpy whole-plane transforms replace the templated per-pixel loops and the

@@ -100,6 +100,7 @@ from .ops import apply_kernel, colors, gainmap as gainmap_ops, pixel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, EncPreset,
                     GainMapMetadata, ImgFmt)
+from .utils import stage
 
 _SAMPLING_420 = ((2, 2), (1, 1), (1, 1))
 _SAMPLING_444 = ((1, 1), (1, 1), (1, 1))
@@ -450,9 +451,11 @@ def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
     """The back half of a fused encode: one `pack` of both scans on the
     device, one download, the host join of each scan and the container."""
     words, blen = _pack_scans(scans, pack)
-    base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
-                                     blen.cpu().numpy(),
-                                     [lay for _, lay in scans])
+    with stage("encode.fetch_offsets"):
+        blen_h = blen.cpu().numpy()
+    with stage("encode.fetch_scans"):
+        base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
+                                         blen_h, [lay for _, lay in scans])
     return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                                icc_cg, scale, gm_scan, metadata, exif, gm_ct,
                                gm_cg)
@@ -656,12 +659,16 @@ def _join_p010(job: _EncodeJob) -> list[bytes]:
     """Wait for one image's pack, download its words and join both scans:
     host work that holds the GIL only briefly (the waits, the copy and the
     C++ joiner release it)."""
-    if job.slot is None:
-        words_h = job.words.numpy().view(np.uint32)
-    else:
-        job.event.synchronize()
-        words_h = job.slot.download(job.words, int(job.slot.total_h[0]))
-    return _join_scans(words_h, job.blen.numpy(), job.layouts)
+    with stage("encode.fetch_offsets"):
+        if job.event is not None:
+            job.event.synchronize()
+        blen_h = job.blen.numpy()
+    with stage("encode.fetch_scans"):
+        if job.slot is None:
+            words_h = job.words.numpy().view(np.uint32)
+        else:
+            words_h = job.slot.download(job.words, int(job.slot.total_h[0]))
+        return _join_scans(words_h, blen_h, job.layouts)
 
 
 def _container_p010(jr, job: _EncodeJob, scans, quality: int,

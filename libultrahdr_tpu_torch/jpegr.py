@@ -67,7 +67,7 @@ from .jpeg.decoder import (decode_coefficients, decode_to_planes,
                            planes_to_rgb)
 from .jpeg.encoder import JpegEncoder
 from .ops import apply as apply_ops
-from .ops import colors, gainmap as gainmap_ops, idw, pixel
+from .ops import colors, effects_device, gainmap as gainmap_ops, idw, pixel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, CompressedImage,
                     EncPreset, GainMapMetadata, HDR_INPUT_FORMATS, ImgFmt,
@@ -900,12 +900,12 @@ class JpegR:
         `microbatch=False` (or UHDR_TPU_DECODE_MICROBATCH=0) pins the
         per-image route; UHDR_TPU_DECODE_MB_WINDOW_MS and
         UHDR_TPU_DECODE_MB_K tune the window and the largest batch.
-        Effects on the device are not ported yet (`effects` other than
-        None raises ``unsupported``)."""
-        if effects is not None:
-            raise unsupported(
-                "decoder effects on the device are not ported yet "
-                "(ROADMAP.md, Queue 1 item 11: effects)")
+
+        `effects`, a queue of ``api.MirrorEffect`` / ``RotateEffect`` /
+        ``CropEffect`` / ``ResizeEffect``, edits the packed output on the
+        device before it is returned, on either route
+        (``ops/effects_device``; the analog of the reference's GLES
+        texture-side effects), the result a tensor of its own."""
         output_ct = ColorTransfer(output_ct)
         if output_ct == ColorTransfer.SRGB:
             raise unsupported("device-resident decode targets HDR outputs")
@@ -913,9 +913,15 @@ class JpegR:
             microbatch = os.environ.get("UHDR_TPU_DECODE_MICROBATCH",
                                         "1") != "0"
         if microbatch:
-            return self._decode_microbatcher().run(
+            packed, metadata = self._decode_microbatcher().run(
                 self, data, (output_ct, float(max_display_boost)))
-        return self._decode_to_device_one(data, output_ct, max_display_boost)
+        else:
+            packed, metadata = self._decode_to_device_one(
+                data, output_ct, max_display_boost)
+        if effects:
+            packed, _, _ = effects_device.apply_effects_packed(packed,
+                                                               effects)
+        return packed, metadata
 
     _MB_LOCK = threading.Lock()
 

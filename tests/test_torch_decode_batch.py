@@ -11,7 +11,8 @@
 - The SRGB output: ``UhdrDecoder``'s RGBA8888 image and its decoded gain map
   (1 and 3 channels) equal the JAX ``UhdrDecoder``'s bytes (both are libjpeg's
   integer decode); ``is_uhdr_image`` agrees with the JAX package's.
-- A mesh or effects raise ``unsupported``.
+- A mesh raises ``unsupported``; an empty effect queue gives the plain
+  output and a descriptor that is no effect ``invalid_param``.
 
 The streams are written by the JAX encoder, as in tests/test_decode_fused.py.
 On the card the batch runs each image on one of the side streams;
@@ -194,18 +195,25 @@ class TestDecodeMicrobatcher:
 
 
 def test_mesh_and_effects_raise_unsupported():
+    """A batch over several devices (`mesh`) still raises ``unsupported``
+    (ROADMAP.md, item 11).  Effects on the device are ported: an empty
+    queue returns the plain output on both routes, and a descriptor that
+    is no effect raises ``invalid_param``, as the JAX package's
+    ``apply_effects_packed`` does."""
     data = _enc(96, 64, 0)
     jr = port.JpegR(device="cpu")
-    for fn in (lambda: jr.decode_to_device_batch([data, data],
-                                                 mesh=object()),
-               lambda: jr.decode_to_device(data, effects=[]),
-               lambda: jr.decode_to_device(data, effects=["mirror"],
-                                           microbatch=False)):
+    with pytest.raises(port.UhdrError) as e:
+        jr.decode_to_device_batch([data, data], mesh=object())
+    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
+    assert "ROADMAP" in str(e.value) and "item 11" in str(e.value)
+    plain, _ = jr.decode_to_device(data, microbatch=False)
+    for microbatch in (True, False):
+        got, _ = jr.decode_to_device(data, effects=[], microbatch=microbatch)
+        assert torch.equal(got, plain)
         with pytest.raises(port.UhdrError) as e:
-            fn()
-        assert e.value.code == \
-            port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-        assert "ROADMAP" in str(e.value) and "item 11" in str(e.value)
+            jr.decode_to_device(data, effects=["mirror"],
+                                microbatch=microbatch)
+        assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_INVALID_PARAM
 
 
 # ---------------------------------------------------------------------------

@@ -195,7 +195,11 @@ def test_import_leaves_jax_out():
             "libultrahdr_tpu_torch.jpegr, libultrahdr_tpu_torch.ops.apply, "
             "libultrahdr_tpu_torch.ops.apply_kernel, "
             "libultrahdr_tpu_torch.jpeg.decoder, "
-            "libultrahdr_tpu_torch.container.segments; "
+            "libultrahdr_tpu_torch.container.segments, "
+            "libultrahdr_tpu_torch.ops.effects_device, "
+            "libultrahdr_tpu_torch.agtm, libultrahdr_tpu_torch.jpegr_compat, "
+            "libultrahdr_tpu_torch.cli, libultrahdr_tpu_torch.capi_bridge, "
+            "libultrahdr_tpu_torch.utils; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'libultrahdr_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -129,6 +129,24 @@ after:
    (one apply launch): >= 55 dB a channel against it, the JAX package's
    host-vs-device gate; prints both times; and ``UhdrDecoder`` with
    ``UHDR_TPU_DECODE_ENGINE=host`` equals ``decode_host`` with no launch;
+14-16. effects on the card (``UhdrDecoder`` effect queues, device effects,
+   encodes with effects), AGTM, and the public API modules (JpegRCompat,
+   the CLI, the C-ABI bridge), each checked against the direct route;
+17. the batch and multi-GPU layer (``parallel``) over meshes that repeat
+   the card (and over distinct cards where there are several):
+   ``sharded_encode_jpeg_step`` of ``photo_p010(8192, 4608)`` over (1, 4)
+   in both configurations, four pack launches each, its assembled base
+   scan (at scale 1 also the gain-map scan and the file, which
+   ``JpegR.decode`` reads) byte for byte the single-device ones;
+   ``sharded_encode_step`` one-pass (bit-identical) and two-pass (map within
+   1, bounds within 1e-6 relative) over (2, 2) with two 4K images and over
+   (1, 4) with the 8K one against ``encode_core_p010`` / ``_twopass`` of
+   each image, and ``encode_batch_p010`` against them; ``sharded_apply_step``
+   over (1, 4) at 8K, scale 1 and 4, 1 and 3 channels, HLG and LINEAR,
+   four apply launches each, bit-identical to the single-device apply; and
+   ``decode_to_device_batch(mesh=make_mesh(4, 1, ...))`` of phase 7's
+   files, eight apply launches, bit-identical to the per-image route.
+   Prints each step's ms beside the single-device route's;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -319,7 +337,10 @@ def main() -> int:
 
     counted = {"pack_scan": pk.PACK_KERNEL, "pack_blocks": pk.PACK_BLOCKS_KERNEL,
                "pack_tiles": pk.PACK_TILES_KERNEL,
-               "apply_gainmap": ak.APPLY_KERNEL}
+               "apply_gainmap": ak.APPLY_KERNEL,
+               "forward_dct": dct.FORWARD_DCT_KERNEL}
+    # every forward-DCT launch read on a path, for the records
+    dct_launches = [0]
 
     def zero_counts():
         for kern in counted.values():
@@ -328,11 +349,17 @@ def main() -> int:
 
     def read_counts(path: str, want: dict) -> dict:
         """The launch counts after driving `path`; raises unless they are
-        `want` (kernels not named there: 0).  "apply_linear" counts the
-        apply kernel's LINEAR launches among its "apply_gainmap" ones."""
+        `want` (kernels not named there: 0; the forward DCT, which every
+        JPEG encode launches once a plane, is checked only where named).
+        "apply_linear" counts the apply kernel's LINEAR launches among its
+        "apply_gainmap" ones."""
         got = {k: kern.launches for k, kern in counted.items()}
         got["apply_linear"] = ak.APPLY_KERNEL.linear_launches
-        if got != {k: want.get(k, 0) for k in got}:
+        dct_launches[0] += got["forward_dct"]
+        expect = {k: want.get(k, 0) for k in got}
+        if "forward_dct" not in want:
+            expect["forward_dct"] = got["forward_dct"]
+        if got != expect:
             raise AssertionError(f"{path}: kernel launches {got}, expected "
                                  f"{want}")
         log(f"launches on the {path} path: {got}")
@@ -341,12 +368,12 @@ def main() -> int:
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
-            ("apply", ak.APPLY_LIB))
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB))
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(native.get_lib)] + [
                 pool.submit(lib.build) for _, lib in libs]:
             f.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the three "
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the four "
         "kernel libraries (nvcc sm_90a) and the host C++, in parallel")
     for kname, lib in libs:
         log(f"phase 2 {kname} kernel: {lib.build_seconds:.1f} s | "
@@ -507,6 +534,40 @@ def main() -> int:
         "and NaN at 64x48 and 53x37 (3 outputs x 1-/3-channel x gamma {1, "
         "1.571}): bit-identical, and the same run again")
 
+    # the forward DCT: one block, a CTA's worth and a ragged last CTA,
+    # flat planes at both ends of the range, quality 100 (every divisor 1)
+    # and 1, a column slice (not contiguous: the wrapper copies it) and a
+    # row slice (a view at an offset)
+    from libultrahdr_tpu_torch.jpeg.tables import (STD_CHROMA_QUANT,
+                                                   STD_LUMA_QUANT,
+                                                   scaled_quant_table)
+    rs = np.random.RandomState(3)
+    noise = torch.from_numpy(rs.randint(0, 256, (136, 1032)).astype(
+        np.uint8)).to(dev)
+    before = dct.FORWARD_DCT_KERNEL.launches
+    for what, plane, quality in (
+            ("one block", noise[:8, :8], 95),
+            ("128 blocks", noise[:64, :128], 95),
+            ("17 x 129 blocks", noise[:, :1032], 95),
+            ("all 0", torch.zeros((16, 24), dtype=torch.uint8,
+                                  device=dev), 100),
+            ("all 255", torch.full((16, 24), 255, dtype=torch.uint8,
+                                   device=dev), 1),
+            ("column slice", noise[:32, 8:72], 100),
+            ("row slice", noise[8:40], 50)):
+        for table in (STD_LUMA_QUANT, STD_CHROMA_QUANT):
+            q = scaled_quant_table(table, quality)
+            got = dct.forward_plane(plane, q)
+            want = dct.forward_plane_plain(plane, q)
+            if not torch.equal(got, want):
+                raise AssertionError(f"forward DCT kernel != plain on {what}"
+                                     f", {int((got != want).sum())} "
+                                     "coefficients differ")
+    if dct.FORWARD_DCT_KERNEL.launches != before + 14:
+        raise AssertionError("phase 3 did not launch the forward DCT kernel")
+    log("phase 3 forward DCT kernel == plain (torch.equal) on 7 planes x 2 "
+        "tables: 1, 128 and 17 x 129 blocks, flat 0 at quality 100, flat "
+        "255 at quality 1, a column slice and a row slice")
     # ---- phase 4: the encode paths ---------------------------------------
     w, h = 3840, 2160
     configs = {"benchmark": dict(scale=4, multichannel=False),
@@ -583,9 +644,11 @@ def main() -> int:
     for cfg, kw in configs.items():
         outputs[cfg] = [encode(img, kw, f"P010 {cfg} request {req}")
                         for req in range(3)]
-    p010_launches = read_counts("P010 encode", {"pack_scan": 6})
+    # the forward DCT once a plane: 3 base planes and the map's 1 or 3
+    p010_launches = read_counts("P010 encode", {"pack_scan": 6,
+                                                "forward_dct": 30})
 
-    kernel_rows, p010_scans, p010_jpegs = {}, {}, {}
+    kernel_rows, dct_rows, p010_scans, p010_jpegs = {}, {}, {}, {}
     for cfg, kw in configs.items():
         data = outputs[cfg][0]
         if any(d != data for d in outputs[cfg]):
@@ -627,6 +690,45 @@ def main() -> int:
             f"{plain_ms2:.3f} ms (CUDA events), bound {b_ms:.4f} ms "
             f"({b_by}, {nbytes(*ins, kw_, kb_) / 1e6:.1f} MB) | {card}")
 
+        # the forward DCT kernel on the planes this request's encode hands
+        # it (recorded at fused's call), each against the plain version;
+        # timed on the luma plane
+        dct_inputs, real_dct = [], fused.forward_plane
+        fused.forward_plane = lambda p, q: (dct_inputs.append((p, q)),
+                                            real_dct(p, q))[1]
+        try:
+            fused._api0_p010_block_buffers(
+                *fused.upload_p010(img, dev), cg=CG.BT2100, ct=CT.HLG,
+                rng=port.ColorRange.FULL, scale=kw["scale"],
+                multichannel=kw["multichannel"], gamma=1.0, quality=95,
+                map_quality=95, use_base_cg=True)
+        finally:
+            fused.forward_plane = real_dct
+        for i, (p, q) in enumerate(dct_inputs):
+            if not torch.equal(dct.forward_plane(p, q),
+                               dct.forward_plane_plain(p, q)):
+                raise AssertionError(f"{cfg}: forward DCT kernel != plain "
+                                     f"on plane {i} {tuple(p.shape)}")
+        luma, q = dct_inputs[0]
+        coeffs = dct.forward_plane(luma, q)
+        d_ms = [cuda_ms(lambda: dct.forward_plane(luma, q), 20)
+                for _ in range(2)]
+        d_plain = [cuda_ms(lambda: dct.forward_plane_plain(luma, q), 5)
+                   for _ in range(2)]
+        # per block: 2 passes x 64 outputs x 8 products and sums, 64
+        # divisions and roundings
+        d_bound, d_by = bound(nbytes(luma, coeffs),
+                              (2 * 64 * 16 + 128) * coeffs[..., 0].numel())
+        dct_rows[cfg] = dict(ms=sum(d_ms) / 2, plain_ms=sum(d_plain) / 2,
+                             err=0, bound_ms=d_bound, bound_by=d_by)
+        log(f"phase 4 forward DCT kernel {cfg}: == plain (torch.equal) on "
+            f"the request's {len(dct_inputs)} planes "
+            f"{[tuple(p.shape) for p, _ in dct_inputs]}; luma "
+            f"{tuple(luma.shape)} kernel {d_ms[0]:.4f}/{d_ms[1]:.4f} ms, "
+            f"plain {d_plain[0]:.3f}/{d_plain[1]:.3f} ms (CUDA events), "
+            f"bound {d_bound:.4f} ms ({d_by}) | {card}")
+        del dct_inputs, luma, coeffs
+
     # RGBA1010102 / RGBAF16 and YUV444_10 (raw upload, 4:4:4 base):
     # name -> (image, its block buffers, their planes and keywords, encode)
     yuv_img = testing.photo_yuv444_10(w, h)
@@ -649,7 +751,8 @@ def main() -> int:
                 encode(rimg, kw, f"{rname} {cfg} request {req}")
                 for req in range(2)]
     rgb_launches = read_counts("RGB and YUV444_10 encode",
-                               {"pack_scan": 2 * len(rgb_outputs)})
+                               {"pack_scan": 2 * len(rgb_outputs),
+                                "forward_dct": 10 * len(rgb_outputs)})
     for (rname, cfg), datas in rgb_outputs.items():
         if datas[0] != datas[1]:
             raise AssertionError(f"{rname} {cfg}: the two requests differ")
@@ -2101,6 +2204,304 @@ def main() -> int:
         f"UhdrEncoder / UhdrDecoder; capi_bridge encode from ctypes "
         f"addresses == UhdrEncoder, all on the card | {card}")
 
+    # ---- phase 17: batch and multi-GPU (parallel) ------------------------
+    # every step over a mesh that repeats the card (its shards on four side
+    # streams of it), held against the single-device route on the card;
+    # over distinct cards too where the machine has more than one
+    from libultrahdr_tpu_torch import parallel
+    from libultrahdr_tpu_torch.parallel import batch as pbatch
+    n_gpu = torch.cuda.device_count()
+    mesh_sets = {"repeated": [dev] * 4}
+    if n_gpu > 1:
+        mesh_sets["distinct"] = [torch.device("cuda", i % n_gpu)
+                                 for i in range(4)]
+    else:
+        log("phase 17: one GPU on this machine, so every mesh repeats it; "
+            "copies between distinct cards are not exercised")
+    w8, h8 = 8192, 4608
+    img8 = testing.photo_p010(w8, h8)
+    y8k = np.asarray(img8.planes[0], np.uint16)[None]
+    uv8k = np.asarray(img8.planes[1], np.uint16)[None]
+
+    def host_ms(fn):
+        """(fn(), host ms) with the card synchronised before and after."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the forward DCT kernel (jpeg/dct.py) gives a row shard's blocks the
+    # whole plane's coefficients, those of its plain version; the batched
+    # matrix product the port used before did not
+    from libultrahdr_tpu_torch.jpeg.tables import (STD_LUMA_QUANT,
+                                                   scaled_quant_table)
+    q95 = scaled_quant_table(STD_LUMA_QUANT, 95)
+    d_mat = torch.from_numpy(dct.dct_matrix()).to(dev)
+    q_mat = torch.tensor(np.asarray(q95, np.float32).reshape(8, 8),
+                         device=dev)
+
+    def matmul_dct(p):
+        blocks = (p.to(torch.float32) - 128.0).reshape(
+            p.shape[0] // 8, 8, p.shape[1] // 8, 8).permute(0, 2, 1, 3)
+        return torch.round(torch.matmul(torch.matmul(d_mat, blocks), d_mat.T)
+                           / q_mat).to(torch.int16)
+
+    luma = parallel.encode_core_p010(y8k[0], uv8k[0], device=dev)[0]
+    moved = {}
+    for dct_name, fn in (("forward_plane",
+                          lambda p: dct.forward_plane(p, q95)),
+                         ("batched matmul", matmul_dct)):
+        whole = fn(luma).reshape(-1)
+        parts = torch.cat([fn(p).reshape(-1) for p in luma.split(h8 // 4)])
+        moved[dct_name] = int((whole != parts).sum())
+    if moved["forward_plane"]:
+        raise AssertionError(f"forward DCT: {moved['forward_plane']} "
+                             "coefficients of a row shard differ")
+    if not torch.equal(dct.forward_plane(luma, q95),
+                       dct.forward_plane_plain(luma, q95)):
+        raise AssertionError(f"forward DCT kernel != plain at {w8}x{h8}")
+    log(f"phase 17 forward DCT of the {w8}x{h8} luma plane, whole against 4 "
+        f"row shards: coefficients that moved {moved}; the kernel == plain "
+        f"(torch.equal); ms "
+        f"{cuda_ms(lambda: dct.forward_plane(luma, q95), 20):.4f} (kernel) "
+        f"against {cuda_ms(lambda: dct.forward_plane_plain(luma, q95), 5):.3f}"
+        f" (plain, elementwise) and {cuda_ms(lambda: matmul_dct(luma), 20):.3f}"
+        f" (batched matmul, quantised, not zigzagged), CUDA events | {card}")
+    del luma, whole, parts
+
+    sharded_pack_launches = sharded_apply_launches = 0
+    sharded_linear_launches = 0
+    for mesh_name, devs in mesh_sets.items():
+        m14 = parallel.make_mesh(1, 4, devs)
+        # 17a: the sharded JPEG encode at 8K, both configurations
+        for cfg, kw in configs.items():
+            jr = port.JpegR(device="cuda",
+                            map_dimension_scale_factor=kw["scale"],
+                            use_multi_channel_gainmap=kw["multichannel"])
+            step = pbatch.sharded_encode_jpeg_step(
+                m14, scale=kw["scale"], multichannel=kw["multichannel"])
+            step(y8k, uv8k)                                   # warm-up
+            zero_counts()
+            outs, step_ms = host_ms(lambda: step(y8k, uv8k))
+            # per shard: 3 base planes and the map's 1 or 3
+            sharded_pack_launches += read_counts(
+                f"sharded JPEG encode {cfg} ({mesh_name} mesh)",
+                {"pack_scan": 4, "forward_dct": 4 * (
+                    3 + (3 if kw["multichannel"] else 1))})["pack_scan"]
+            # each shard's pack launch against the plain pack on the same
+            # stream inputs (the shard's rows through the same stages)
+            for s in range(4):
+                rows, half = h8 // 4, h8 // 8
+                scans = fused._api0_p010_block_buffers(
+                    pixel.plane_tensor(y8k[0, s * rows:(s + 1) * rows], dev),
+                    pixel.plane_tensor(uv8k[0, s * half:(s + 1) * half],
+                                       dev),
+                    cg=CG.BT2100, ct=CT.HLG, rng=port.ColorRange.FULL,
+                    scale=kw["scale"], multichannel=kw["multichannel"],
+                    gamma=1.0, quality=95, map_quality=95, use_base_cg=False)
+                pw, pb = fused._pack_scans(scans, pk.pack_scan_plain)
+                n_base = scans[0][1].mcus_h * scans[0][1].bpr
+                tb = device_entropy.total_words(pb[:n_base].cpu().numpy())
+                got_s = [o.shards[0][s][0] for o in outs]
+                if not (torch.equal(got_s[1], pb[:n_base])
+                        and torch.equal(got_s[3], pb[n_base:])
+                        and torch.equal(got_s[0][:tb], pw[:tb])
+                        and torch.equal(got_s[2][:pw.numel() - tb],
+                                        pw[tb:])):
+                    raise AssertionError(f"sharded JPEG encode {cfg}: shard "
+                                         f"{s}'s pack != the plain pack")
+            log(f"phase 17a sharded JPEG encode {cfg}: each shard's pack "
+                f"launch ({pb.numel()} blocks, {pw.numel()} words in the "
+                "last) == the plain pack on the same inputs (torch.equal)")
+            del scans, pw, pb, got_s
+
+            def single_scans():
+                scans = fused._api0_p010_block_buffers(
+                    *fused.upload_p010(img8, dev), cg=CG.BT2100, ct=CT.HLG,
+                    rng=port.ColorRange.FULL, scale=kw["scale"],
+                    multichannel=kw["multichannel"], gamma=1.0, quality=95,
+                    map_quality=95, use_base_cg=False)
+                words, blen = fused._pack_scans(scans, pk.pack_scan)
+                return fused._join_scans(
+                    words.cpu().numpy().view(np.uint32), blen.cpu().numpy(),
+                    [lay for _, lay in scans]), [lay for _, lay in scans]
+
+            single_scans()
+            ((base_ref, gm_ref), (bl, gl)), single_ms = host_ms(single_scans)
+            (base_s, gm_s), join_ms = host_ms(lambda: [
+                pbatch.assemble_sharded_scan(
+                    ws.gather()[0], ls.gather()[0].reshape(4, -1), lay.bpr)
+                for ws, ls, lay in ((outs[0], outs[1], bl),
+                                    (outs[2], outs[3], gl))])
+            if base_s != base_ref:
+                raise AssertionError(f"sharded JPEG encode {cfg}: base scan "
+                                     "!= the single-device scan")
+            what = "base scan"
+            if kw["scale"] == 1:
+                md = fused._onepass_metadata(jr, CT.HLG, use_base_cg=False)
+                args = (jr, w8, h8, 95, base_s, fused._SAMPLING_420,
+                        CG.DISPLAY_P3, 1, gm_s, md, None, CT.HLG, CG.BT2100)
+                container = fused._assemble_container(*args)
+                if gm_s != gm_ref or container != fused._assemble_container(
+                        *args[:4], base_ref, *args[5:8], gm_ref, *args[9:]):
+                    raise AssertionError(f"sharded JPEG encode {cfg}: gain-"
+                                         "map scan or file != single-device")
+                dec_img = jr.decode(container, CT.HLG)[0]
+                if (dec_img.w, dec_img.h) != (w8, h8):
+                    raise AssertionError("sharded 8K file: decode size")
+                what = "base and gain-map scans and the file (decoded by " \
+                    "JpegR.decode)"
+            log(f"phase 17a sharded JPEG encode {cfg} {w8}x{h8}, mesh (1, 4)"
+                f" {mesh_name}: step {step_ms:.1f} ms + gather and join "
+                f"{join_ms:.1f} ms, against {single_ms:.1f} ms single-device "
+                f"(block buffers, one pack, download, join); {what} == the "
+                f"single-device ones byte for byte | {card}")
+
+        # 17b: the sharded pixel encode, one-pass and two-pass
+        two4k = [testing.photo_p010(w, h, seed=s) for s in (11, 12)]
+        y4k = np.stack([np.asarray(im.planes[0], np.uint16) for im in two4k])
+        uv4k = np.stack([np.asarray(im.planes[1], np.uint16) for im in two4k])
+        for mesh_shape, ys, uvs in (((2, 2), y4k, uv4k), ((1, 4), y8k, uv8k)):
+            mesh = parallel.make_mesh(*mesh_shape, devs)
+            for two_pass in (False, True):
+                step = parallel.sharded_encode_step(mesh, two_pass=two_pass)
+                core = parallel.encode_core_p010_twopass if two_pass \
+                    else parallel.encode_core_p010
+                step(ys, uvs)
+                zero_counts()
+                outs, step_ms = host_ms(lambda: step(ys, uvs))
+                read_counts(f"sharded encode {mesh_shape} two_pass "
+                            f"{two_pass}", {})
+                refs, single_ms = host_ms(lambda: [
+                    core(ys[i], uvs[i], multichannel=True, device=dev)
+                    for i in range(ys.shape[0])])
+                got = [o.gather(dev) for o in outs]
+                for i, ref in enumerate(refs):
+                    for k, (g, r) in enumerate(zip(got, ref)):
+                        g = g[i]
+                        if k >= 4:
+                            if not torch.allclose(g, r, rtol=1e-6, atol=0):
+                                raise AssertionError(
+                                    f"sharded two-pass bounds {mesh_shape}: "
+                                    f"{g.tolist()} vs {r.tolist()}")
+                        elif k == 3 and two_pass:
+                            if (g.int() - r.int()).abs().max() > 1:
+                                raise AssertionError(
+                                    f"sharded two-pass map {mesh_shape}: "
+                                    "differs by more than 1")
+                        elif not torch.equal(g, r):
+                            raise AssertionError(
+                                f"sharded encode {mesh_shape} two_pass "
+                                f"{two_pass}: output {k} of image {i} != "
+                                "the single-device step")
+                log(f"phase 17b sharded encode {'two' if two_pass else 'one'}"
+                    f"-pass, {ys.shape[0]} x {ys.shape[2]}x{ys.shape[1]}, "
+                    f"mesh {mesh_shape} {mesh_name}: {step_ms:.1f} ms against "
+                    f"{single_ms:.1f} ms one image at a time on one device; "
+                    + ("map within 1, bounds within 1e-6 relative, planes "
+                       "bit-identical" if two_pass else "bit-identical")
+                    + f" | {card}")
+        outs_b, batch_ms = host_ms(lambda: parallel.encode_batch_p010(
+            y4k, uv4k, device=dev))
+        for i in range(2):
+            one = parallel.encode_core_p010(y4k[i], uv4k[i], device=dev)
+            if not all(torch.equal(b[i], o) for b, o in zip(outs_b, one)):
+                raise AssertionError(f"encode_batch_p010 image {i} != "
+                                     "encode_core_p010")
+        log(f"phase 17b encode_batch_p010 of two 4K images: {batch_ms:.1f} "
+            f"ms, == encode_core_p010 of each | {card}")
+
+        # 17c: the sharded apply at 8K, mesh (1, 4), the one-pass encode's
+        # SDR and maps as inputs
+        for scale_k, chans in ((1, 3), (1, 1), (4, 1), (4, 3)):
+            y8_, u8_, v8_, gm = parallel.encode_core_p010(
+                y8k[0], uv8k[0], scale=scale_k, multichannel=chans == 3,
+                device=dev)
+            sdr = pixel.unpack_yuv8(y8_, u8_, v8_, 2, 2, h8, w8)
+            sdr_h, gm_h = sdr.cpu().numpy()[None], gm.cpu().numpy()[None]
+            meta = apply_ops.metadata_to_arrays(fused._onepass_metadata(
+                port.JpegR(device="cuda"), CT.HLG, True))
+            for out_ct in (CT.HLG, CT.LINEAR):
+                step = parallel.sharded_apply_step(m14, scale_k=scale_k,
+                                                   out_ct=out_ct)
+                step(sdr_h, gm_h, meta)
+                zero_counts()
+                got, step_ms = host_ms(lambda: step(sdr_h, gm_h, meta))
+                counts = read_counts(
+                    f"sharded apply scale {scale_k} {chans}-channel "
+                    f"{out_ct.name} ({mesh_name} mesh)",
+                    {"apply_gainmap": 4,
+                     "apply_linear": 4 if out_ct == CT.LINEAR else 0})
+                sharded_apply_launches += counts["apply_gainmap"]
+                sharded_linear_launches += counts["apply_linear"]
+
+                def single():
+                    return apply_ops.apply_gainmap_core(
+                        pixel.to_device(sdr_h[0], dev),
+                        pixel.to_device(gm_h[0], dev), meta, scale_k=scale_k,
+                        weight=np.float32(1.0), out_ct=out_ct,
+                        sdr_cg=CG.DISPLAY_P3, hdr_cg=CG.BT2100,
+                        use_base_cg=True)
+
+                single()
+                want, single_ms = host_ms(single)
+                what = f"sharded apply scale {scale_k} {chans}-channel " \
+                    f"{out_ct.name}"
+                bit_identical(got.gather(dev)[0], want, what)
+                # each shard's apply launch against the plain apply on the
+                # shard's SDR rows and its halo-upsampled gain
+                rows, m_rows = h8 // 4, gm.shape[1] // 4
+                for s in range(4):
+                    g = gm[:, s * m_rows:(s + 1) * m_rows].float() / 255.0
+                    if scale_k > 1:
+                        halo = gm[:, -1:] if s == 3 else \
+                            gm[:, (s + 1) * m_rows:(s + 1) * m_rows + 1]
+                        g = idw.idw_upsample_sharded(
+                            g, halo.float() / 255.0, s == 3, scale_k, rows,
+                            w8)
+                    bit_identical(got.shards[0][s][0], ak.apply_gainmap_plain(
+                        sdr[:, s * rows:(s + 1) * rows].contiguous(),
+                        g.contiguous(), ak.meta_to_rows(meta),
+                        np.float32(1.0), out_ct=out_ct, sdr_cg=CG.DISPLAY_P3,
+                        hdr_cg=CG.BT2100, use_base_cg=True),
+                        f"{what}, shard {s} against the plain apply")
+                # the step on the card's own tensors: ordered after the
+                # stream that wrote them, the same output
+                bit_identical(step(sdr[None], gm[None], meta).gather()[0],
+                              want, f"{what} from CUDA tensors")
+                log(f"phase 17c sharded apply {w8}x{h8} scale {scale_k} "
+                    f"{chans}-channel {out_ct.name}, mesh (1, 4) {mesh_name}:"
+                    f" {step_ms:.1f} ms against {single_ms:.1f} ms on one "
+                    f"device (both from host arrays); bit-identical to it, "
+                    f"each shard bit-identical to the plain apply on its "
+                    f"rows, and the step from CUDA tensors too | {card}")
+        del sdr, sdr_h, gm_h, got, want
+
+        # 17d: the batch decode over a (4, 1) mesh of phase 7's files
+        m41 = parallel.make_mesh(4, 1, devs)
+        for cfg, ct in (("benchmark", CT.HLG), ("default", CT.LINEAR)):
+            jr = port.JpegR(device="cuda")
+            zero_counts()
+            outs_m, mesh_ms = host_ms(lambda: jr.decode_to_device_batch(
+                piped[cfg], ct, mesh=m41))
+            counts = read_counts(
+                f"mesh batch decode {cfg} {ct.name} ({mesh_name} mesh)",
+                {"apply_gainmap": n_img,
+                 "apply_linear": n_img if ct == CT.LINEAR else 0})
+            sharded_apply_launches += counts["apply_gainmap"]
+            sharded_linear_launches += counts["apply_linear"]
+            _, plain_ms = host_ms(lambda: jr.decode_to_device_batch(
+                piped[cfg], ct))
+            for i, ((got_d, _), want_d) in enumerate(zip(
+                    outs_m, per_image[cfg, ct])):
+                bit_identical(got_d.to(dev), want_d, f"mesh batch decode "
+                              f"{cfg} {ct.name} stream {i}")
+            log(f"phase 17d decode_to_device_batch {cfg} {ct.name}, mesh "
+                f"(4, 1) {mesh_name}: {n_img} streams in {mesh_ms:.1f} ms "
+                f"against {plain_ms:.1f} ms without the mesh; every output "
+                f"bit-identical to the per-image route | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -2123,19 +2524,21 @@ def main() -> int:
     linear = apply_launches["apply_linear"] \
         + batch_launches[CT.LINEAR]["apply_linear"] \
         + general_launches["apply_linear"] + host_launches["apply_linear"] \
-        + sum(c["apply_linear"] for c in slice9)
+        + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
         + host_launches["apply_gainmap"] \
-        + sum(c["apply_gainmap"] for c in slice9) - linear
+        + sum(c["apply_gainmap"] for c in slice9) \
+        + sharded_apply_launches - linear
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
                + api1_launches["pack_scan"]
                + compressed_launches["pack_scan"] + pipe_launches
                + general_input_launches["pack_scan"]
-               + fx_enc_launches["pack_scan"] + public_launches["pack_scan"],
+               + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
+               + sharded_pack_launches,
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -2152,7 +2555,12 @@ def main() -> int:
                hlg_pq, apply_rows["default", CT.HLG], apply_err),
         record("apply_gainmap_linear", "apply_kernel.cu",
                "ops/pallas_apply.py:164", linear,
-               apply_rows["default", CT.LINEAR], apply_err)]}))
+               apply_rows["default", CT.LINEAR], apply_err),
+        # the JAX forward DCT is an XLA matrix product, no pallas_call: the
+        # kernel gives every plane size the same rounding (jpeg/dct.py)
+        record("forward_dct", "dct_kernel.cu", "jpeg/dct.py:151",
+               dct_launches[0], dct_rows["default"],
+               max(r["err"] for r in dct_rows.values()))]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {

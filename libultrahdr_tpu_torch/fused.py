@@ -158,12 +158,11 @@ def _onepass_gainmap(sdr_vals, hdr_vals, *, sdr_fmt: ImgFmt, hdr_fmt: ImgFmt,
         sdr_is_601=False, use_base_cg=use_base_cg, max_boost=max_boost)
 
 
-def _api0_p010_block_buffers(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
-                             rng: ColorRange, scale: int, multichannel: bool,
-                             gamma: float, quality: int, map_quality: int,
-                             use_base_cg: bool):
-    """P010 HDR planes on the device -> [(coeffs, layout)] for the base then
-    the gain-map scan (steps 1-4)."""
+def api0_p010_pixels(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
+                     rng: ColorRange, scale: int, multichannel: bool,
+                     gamma: float, use_base_cg: bool):
+    """P010 HDR planes on the device -> (SDR Y, U, V u8 planes, one-pass
+    gain map u8 (C, mh, mw)) (steps 1-3)."""
     h, w = y.shape
     hdr_vals = pixel.unpack_p010(y, uv, rng, h, w)
     y8, u8, v8 = tonemap_ops.tonemap_to_yuv(hdr_vals, ImgFmt.P010, cg, ct)
@@ -172,6 +171,18 @@ def _api0_p010_block_buffers(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
                           hdr_fmt=ImgFmt.P010, cg=cg, ct=ct, scale=scale,
                           multichannel=multichannel, gamma=gamma,
                           use_base_cg=use_base_cg)
+    return y8, u8, v8, gm
+
+
+def _api0_p010_block_buffers(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
+                             rng: ColorRange, scale: int, multichannel: bool,
+                             gamma: float, quality: int, map_quality: int,
+                             use_base_cg: bool):
+    """P010 HDR planes on the device -> [(coeffs, layout)] for the base then
+    the gain-map scan (steps 1-4)."""
+    y8, u8, v8, gm = api0_p010_pixels(
+        y, uv, cg=cg, ct=ct, rng=rng, scale=scale, multichannel=multichannel,
+        gamma=gamma, use_base_cg=use_base_cg)
     return [_base_scan([y8, u8, v8], _SAMPLING_420, quality),
             _gainmap_scan(gm, multichannel, map_quality)]
 
@@ -569,7 +580,8 @@ class _Slot:
     image and by later calls (grown when an image needs more, never
     shrunk).  The slot's next image is dispatched only after this one's
     words are joined, so a launch never overwrites words still to be
-    read."""
+    read.  The sharded JPEG step (``parallel``) gives each shard's image
+    a slot of its own."""
 
     def __init__(self, dev: torch.device, stream):
         self.dev = dev

@@ -3,12 +3,22 @@ bit-exact islow IDCT of the decode.
 
 Port of ``libultrahdr_tpu/jpeg/dct.py``:
 
-- ``forward_plane``: each plane is reshaped to expose the two 8-point axes
-  and transformed with two small float32 matrix products, then quantised
-  (round half to even, like libjpeg ISLOW's descale) and zigzag-reordered.
-  The products run in full float32: the package turns TF32 off
-  (``libultrahdr_tpu_torch/__init__.py``), as the JAX package runs this at
-  HIGHEST precision.
+- ``forward_plane``: the level shift, the two 8-point passes, quantisation
+  (round half to even, like libjpeg ISLOW's descale) and the zigzag
+  reorder.  Each output of a pass is the sum of its 8 float32 products in
+  index order, every product and sum rounded on its own, so a coefficient
+  is the same sequence of rounded float32 operations whatever the plane's
+  size and on any device: a row shard of an image gets its blocks'
+  coefficients bit for bit (``parallel``), and the card gets the CPU's.  A
+  batched matrix product does not: cuBLAS picks its kernel, and with it
+  the rounding, by the batch size (``chip_smoke.py`` phase 17 counts the
+  coefficients of an 8192x4608 luma plane that move when it is cut into 4
+  row shards).  ``forward_plane_plain`` is that arithmetic as elementwise
+  tensor ops; on the card ``forward_plane`` launches
+  ``csrc/dct_kernel.cu``, the same arithmetic in one kernel.  The JAX
+  package's HIGHEST-precision product sums in another order, so a
+  quantised coefficient of the two packages may differ where it lies at a
+  rounding tie.
 - ``inverse_plane``: dequantisation, libjpeg's jpeg_idct_islow butterfly and
   its range-limit table, entirely in int32 tensor ops.  torch's int32
   arithmetic wraps in two's complement on the CPU and on CUDA, ``>>`` on
@@ -19,11 +29,14 @@ Port of ``libultrahdr_tpu/jpeg/dct.py``:
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .._buildlib import CudaLibrary, check_launch
+from ..errors import unsupported
 from ..ops.pixel import to_device
 from .tables import INV_ZIGZAG, ZIGZAG_ORDER
 
@@ -41,20 +54,97 @@ def dct_matrix() -> np.ndarray:
     return d.astype(np.float32)
 
 
-def forward_plane(plane_u8: torch.Tensor, qtable_natural) -> torch.Tensor:
-    """uint8 (H, W) plane, H and W multiples of 8 -> zigzagged quantized
-    coefficients (H/8, W/8, 64) int16.  Level shift -128, FDCT, quantize,
-    zigzag reorder."""
+def forward_plane_plain(plane_u8: torch.Tensor,
+                        qtable_natural) -> torch.Tensor:
+    """Plain version of the forward DCT (any device): uint8 (H, W) plane, H
+    and W multiples of 8 -> zigzagged quantized coefficients (H/8, W/8, 64)
+    int16.  Level shift -128, FDCT, quantize, zigzag reorder."""
     dev = plane_u8.device
     x = plane_u8.to(torch.float32) - 128.0
     h, w = x.shape
     blocks = x.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
     d = to_device(dct_matrix(), dev)
-    coeffs = torch.matmul(torch.matmul(d, blocks), d.T)
+    # D X: rows of the block; then (D X) D^T: its columns
+    t = d[:, 0, None] * blocks[..., 0:1, :]
+    for k in range(1, 8):
+        t = t + d[:, k, None] * blocks[..., k:k + 1, :]
+    coeffs = t[..., 0:1] * d[:, 0]
+    for k in range(1, 8):
+        coeffs = coeffs + t[..., k:k + 1] * d[:, k]
     q = to_device(np.asarray(qtable_natural, np.float32).reshape(8, 8), dev)
     quant = torch.round(coeffs / q).to(torch.int16)
     flat = quant.reshape(h // 8, w // 8, 64)
     return flat[..., to_device(np.asarray(ZIGZAG_ORDER, np.int64), dev)]
+
+
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+DCT_LIB = CudaLibrary("dct_kernel", {
+    "uhdr_forward_dct": [_PTR, _I64, _I64, _PTR, _PTR, _PTR]})
+
+
+class _DctParams(ctypes.Structure):
+    """csrc/dct_kernel.cu DctParams: D row-major, the quantisation table in
+    natural order, each natural index's zigzag position."""
+    _fields_ = [("d", ctypes.c_float * 64), ("q", ctypes.c_float * 64),
+                ("pos", ctypes.c_int * 64)]
+
+
+@functools.lru_cache(maxsize=16)
+def _dct_params(q: bytes) -> _DctParams:
+    params = _DctParams()
+    params.d[:] = dct_matrix().ravel().tolist()
+    params.q[:] = np.frombuffer(q, np.float32).tolist()
+    params.pos[:] = np.asarray(INV_ZIGZAG).tolist()
+    return params
+
+
+class _ForwardDctKernel:
+    """Wrapper of csrc/dct_kernel.cu: launch and launch count."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, plane_u8: torch.Tensor,
+                 qtable_natural) -> torch.Tensor:
+        dev = plane_u8.device
+        if dev.type != "cuda":
+            raise ValueError(f"forward DCT kernel needs a CUDA tensor, got "
+                             f"{dev}")
+        if (plane_u8.dim() != 2 or plane_u8.dtype != torch.uint8
+                or plane_u8.shape[0] % 8 or plane_u8.shape[1] % 8):
+            raise ValueError(
+                f"forward DCT kernel: the plane must be uint8 (H, W) with H "
+                f"and W multiples of 8, got {plane_u8.dtype} "
+                f"{tuple(plane_u8.shape)}")
+        if not plane_u8.is_contiguous() or plane_u8.data_ptr() % 8:
+            plane_u8 = plane_u8.clone(memory_format=torch.contiguous_format)
+        h, w = plane_u8.shape
+        q = np.ascontiguousarray(np.asarray(qtable_natural, np.float32)
+                                 .reshape(64))
+        out = torch.empty((h // 8, w // 8, 64), dtype=torch.int16,
+                          device=dev)
+        lib = DCT_LIB.build()
+        check_launch(lib, lib.uhdr_forward_dct(
+            plane_u8.data_ptr(), h, w, ctypes.byref(_dct_params(q.tobytes())),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "uhdr_forward_dct")
+        self.launches += 1
+        return out
+
+
+FORWARD_DCT_KERNEL = _ForwardDctKernel()
+
+
+def forward_plane(plane_u8: torch.Tensor, qtable_natural) -> torch.Tensor:
+    """Dispatcher: uint8 (H, W) plane, H and W multiples of 8 -> zigzagged
+    quantized coefficients (H/8, W/8, 64) int16; the plain version for a
+    CPU tensor, the CUDA kernel for a CUDA one.  No fallback between the
+    two."""
+    if plane_u8.device.type == "cpu":
+        return forward_plane_plain(plane_u8, qtable_natural)
+    if plane_u8.device.type == "cuda":
+        return FORWARD_DCT_KERNEL(plane_u8, qtable_natural)
+    raise unsupported(f"no forward DCT for device {plane_u8.device}")
 
 
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:

@@ -699,18 +699,19 @@ class JpegR:
                 "hdr_cg": h_cg, "use_base_cg": bool(metadata.use_base_cg)}
 
     def _decode_planned(self, plan: dict, base, gm, metadata, output_ct,
-                        max_display_boost):
-        """The device half of a fused decode on ``self.device`` from the
-        host Huffman decode of both images (``fused.decode_coefficients``
-        results, the coefficient planes as host arrays or pinned tensors):
-        raw upload, ``_decode_device_core`` with one apply launch.  Returns
-        (packed output, gain map u8)."""
+                        max_display_boost, device=None):
+        """The device half of a fused decode on `device` (by default
+        ``self.device``) from the host Huffman decode of both images
+        (``fused.decode_coefficients`` results, the coefficient planes as
+        host arrays or pinned tensors): raw upload, ``_decode_device_core``
+        with one apply launch.  Returns (packed output, gain map u8)."""
+        device = device or self.device
         weight = apply_ops.gainmap_weight(
             max_display_boost, float(metadata.hdr_capacity_min),
             float(metadata.hdr_capacity_max))
         return fused._decode_device_core(
-            fused.upload_coeff_planes(base[0], self.device), base[1],
-            fused.upload_coeff_planes(gm[0], self.device), gm[1],
+            fused.upload_coeff_planes(base[0], device), base[1],
+            fused.upload_coeff_planes(gm[0], device), gm[1],
             apply_ops.metadata_to_arrays(metadata), np.float32(weight),
             out_ct=output_ct, **plan)
 
@@ -961,16 +962,21 @@ class JpegR:
         on one of the device's side streams (``fused.side_streams``, in
         turn) as soon as that decode ends, with one apply launch an image,
         so the parse, the host decodes and the card overlap.  The outputs
-        equal the per-image route's bit for bit.  `mesh` (a multi-GPU
-        batch) is not ported yet."""
-        if mesh is not None:
-            raise unsupported(
-                "a batch over several devices is not ported yet "
-                "(ROADMAP.md, Queue 1 item 11: batch and multi-GPU)")
+        equal the per-image route's bit for bit.
+
+        With `mesh` (a ``parallel.Mesh``) and a group whose size divides
+        its "data" axis, the group's images go to the data axis's devices
+        in contiguous blocks, as a batch dimension sharded over that axis
+        would place them; each image's output stays on its device.  Any
+        other group takes ``self.device``."""
+        from .parallel.batch import Mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise invalid_param(f"mesh must be a parallel.Mesh, got "
+                                f"{type(mesh).__name__}")
         output_ct = ColorTransfer(output_ct)
         if output_ct == ColorTransfer.SRGB:
             raise unsupported("device-resident decode targets HDR outputs")
-        cuda = self.device.type == "cuda"
+        cuda = (mesh.devices[0][0] if mesh else self.device).type == "cuda"
         entries: list = []
         group: dict = {}        # a host Huffman decode each -> stream index
         sig = None
@@ -988,8 +994,15 @@ class JpegR:
             # a group of one takes the per-image route: its staged
             # coefficients are dropped with its future
             if len(group) >= 2:
+                order = sorted(group.values())
+                devices = {i: self.device for i in order}
+                if mesh and len(order) % mesh.shape["data"] == 0:
+                    per = len(order) // mesh.shape["data"]
+                    devices = {i: mesh.devices[k // per][0]
+                               for k, i in enumerate(order)}
                 for i, out in self._decode_group(group, entries, output_ct,
-                                                 max_display_boost).items():
+                                                 max_display_boost,
+                                                 devices).items():
                     results[i] = out
         for i, data in enumerate(streams):
             if results[i] is None:
@@ -1009,35 +1022,40 @@ class JpegR:
                 "gm_info": gm_info, "metadata": metadata, "plan": plan}
 
     def _decode_group(self, group: dict, entries, output_ct,
-                      max_display_boost) -> dict:
+                      max_display_boost, devices) -> dict:
         """The device half of a batch group: each image's upload and device
-        stages on the next side stream as soon as its host decode (a future
-        of `group`) ends, every launch on this thread; the caller's
-        current stream then waits for the outputs.  On the CPU the same
-        stages run with no streams.  Returns {stream index: (packed output,
-        metadata)}."""
-        dev = self.device
-        cuda = dev.type == "cuda"
-        if cuda:
+        stages on its device (`devices`: stream index -> device), on the
+        next side stream of that device, as soon as its host decode (a
+        future of `group`) ends, every launch on this thread; the caller's
+        current stream of each device then waits for the outputs.  On the
+        CPU the same stages run with no streams.  Returns {stream index:
+        (packed output, metadata)}."""
+        used = {dev: 0 for dev in devices.values() if dev.type == "cuda"}
+        for dev in used:
             fused.prepare_device(dev)
-            streams = fused.side_streams(dev)
         outs = {}
-        for n, f in enumerate(concurrent.futures.as_completed(group)):
+        for f in concurrent.futures.as_completed(group):
             i = group[f]
             base, gm = f.result()
             e = entries[i]
-            with torch.cuda.stream(streams[n % len(streams)]) if cuda \
-                    else contextlib.nullcontext():
+            dev = devices[i]
+            ctx = contextlib.nullcontext()
+            if dev.type == "cuda":
+                streams = fused.side_streams(dev)
+                ctx = torch.cuda.stream(streams[used[dev] % len(streams)])
+                used[dev] += 1
+            with ctx:
                 packed, _ = self._decode_planned(
                     e["plan"], base, gm, e["metadata"], output_ct,
-                    max_display_boost)
+                    max_display_boost, dev)
             outs[i] = (packed, e["metadata"])
-        if cuda:
+        for dev in used:
             cur = torch.cuda.current_stream(dev)
-            for s in streams:
+            for s in fused.side_streams(dev):
                 cur.wait_stream(s)
-            for packed, _ in outs.values():
-                packed.record_stream(cur)
+        for packed, _ in outs.values():
+            if packed.device.type == "cuda":
+                packed.record_stream(torch.cuda.current_stream(packed.device))
         return outs
 
 

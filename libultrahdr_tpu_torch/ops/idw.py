@@ -9,11 +9,13 @@ sampleMap3Channel, gainmapmath.cpp:39-80, 871-1080) for one device.
   the "upper" variants shifted by one texel with edge clamping first) and
   blended with weight fields tiled from the (k, k, 4) Shepard tables, in the
   JAX package's order of float32 sums.
+- ``idw_upsample_sharded``, integer factors on one row shard of the map:
+  the next shard's first map row (the halo) stands in for the row below the
+  shard, and the bottom-edge tables apply only on the last shard, so the
+  shards' outputs stacked equal ``idw_upsample`` of the whole map.
 - ``idw_upsample_fractional``, a float factor (a map size that does not
   divide the image): per-pixel distances to the 4 enclosing texels, in the
   JAX package's float32 order of operations, with its ``hypot`` formula.
-
-The row-sharded variant is not ported yet (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -107,6 +109,20 @@ def idw_upsample(gainmap: torch.Tensor, k: int, out_h: int,
     down = _shift_clamp(gainmap, 1)
     rr = ((torch.arange(out_h, device=gainmap.device) // k)
           >= (mh - 1))[:, None]
+    return _idw_core(gainmap, down, k, out_h, out_w, rr)
+
+
+def idw_upsample_sharded(gainmap: torch.Tensor, halo_row: torch.Tensor,
+                         is_last: bool, k: int, out_h: int,
+                         out_w: int) -> torch.Tensor:
+    """Row-sharded IDW upsample: gainmap is this shard's (C, mh_local, mw)
+    rows, halo_row (C, 1, mw) the next shard's first map row (on the last
+    shard its own last row), is_last switches the bottom-edge tables on
+    where the image's edge is."""
+    mh = gainmap.shape[1]
+    down = torch.cat([gainmap, halo_row], dim=1)[:, 1:, :]
+    rr = (((torch.arange(out_h, device=gainmap.device) // k) >= (mh - 1))
+          & bool(is_last))[:, None]
     return _idw_core(gainmap, down, k, out_h, out_w, rr)
 
 

@@ -540,8 +540,7 @@ PORTED_AS = {"ops/pallas_apply.py": "ops/apply_kernel.py"}
 
 def test_module_coverage():
     """Every .py module of the JAX package has a port module of the same
-    name (or the one PORTED_AS names), except those ROADMAP.md still owes
-    (Queue 1 item 11: batch and multi-GPU)."""
+    name (or the one PORTED_AS names)."""
     jax_root = REPO / "libultrahdr_tpu"
     port_root = REPO / "libultrahdr_tpu_torch"
     unported = []
@@ -549,7 +548,7 @@ def test_module_coverage():
         rel = f.relative_to(jax_root).as_posix()
         if not (port_root / PORTED_AS.get(rel, rel)).is_file():
             unported.append(rel)
-    assert unported == ["parallel/__init__.py", "parallel/batch.py"]
+    assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())
 
 

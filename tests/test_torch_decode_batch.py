@@ -11,8 +11,10 @@
 - The SRGB output: ``UhdrDecoder``'s RGBA8888 image and its decoded gain map
   (1 and 3 channels) equal the JAX ``UhdrDecoder``'s bytes (both are libjpeg's
   integer decode); ``is_uhdr_image`` agrees with the JAX package's.
-- A mesh raises ``unsupported``; an empty effect queue gives the plain
-  output and a descriptor that is no effect ``invalid_param``.
+- A batch over a mesh of CPU devices equals the batch without one; an
+  argument that is no mesh raises ``invalid_param``; an empty effect queue
+  gives the plain output and a descriptor that is no effect
+  ``invalid_param``.
 
 The streams are written by the JAX encoder, as in tests/test_decode_fused.py.
 On the card the batch runs each image on one of the side streams;
@@ -194,18 +196,26 @@ class TestDecodeMicrobatcher:
             assert jr._mb.retries == 2 and jr._mb.batches == 0
 
 
-def test_mesh_and_effects_raise_unsupported():
-    """A batch over several devices (`mesh`) still raises ``unsupported``
-    (ROADMAP.md, item 11).  Effects on the device are ported: an empty
-    queue returns the plain output on both routes, and a descriptor that
-    is no effect raises ``invalid_param``, as the JAX package's
-    ``apply_effects_packed`` does."""
+def test_mesh_batch_and_effects():
+    """A batch over a mesh (`mesh`, two CPU devices on its data axis)
+    equals the batch without one and the per-image route bit for bit, and
+    a mesh argument that is no ``parallel.Mesh`` raises ``invalid_param``.
+    Effects on the device: an empty queue returns the plain output on both
+    routes, and a descriptor that is no effect raises ``invalid_param``,
+    as the JAX package's ``apply_effects_packed`` does."""
+    from libultrahdr_tpu_torch import parallel
     data = _enc(96, 64, 0)
     jr = port.JpegR(device="cpu")
+    streams = [_enc(96, 64, s) for s in range(4)]
+    mesh = parallel.make_mesh(2, 1, [torch.device("cpu")] * 2)
+    sharded = jr.decode_to_device_batch(streams, mesh=mesh)
+    unsharded = jr.decode_to_device_batch(streams)
+    for d, (so, smd), (uo, _) in zip(streams, sharded, unsharded):
+        assert torch.equal(so, uo)
+        _held(d, so, smd, ColorTransfer.HLG)
     with pytest.raises(port.UhdrError) as e:
         jr.decode_to_device_batch([data, data], mesh=object())
-    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE
-    assert "ROADMAP" in str(e.value) and "item 11" in str(e.value)
+    assert e.value.code == port.UhdrErrorCode.UHDR_CODEC_INVALID_PARAM
     plain, _ = jr.decode_to_device(data, microbatch=False)
     for microbatch in (True, False):
         got, _ = jr.decode_to_device(data, effects=[], microbatch=microbatch)

@@ -17,14 +17,16 @@ the slot-input block-pack and tile-pack routes on the encode's scans, in
 phases that each
 print lines and let any failure propagate (exit code != 0).  Every path is
 driven with all kernel launch counts set to 0 just before it and read just
-after:
+after (the scan kernel's too: two launches a fused encode, one a plane of
+the general path's encoder), and every scan and plane it built is then
+held against the plain composition on its own inputs:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernel libraries (csrc/pack_kernel.cu,
-   csrc/block_pack_kernel.cu and csrc/apply_kernel.cu, nvcc, sm_90a) and the
-   host C++ (csrc/host/) from the checkout's sources, all four compilers started
-   together; print each kernel's ptxas line (registers, static shared
-   memory, spills);
+2. build the four CUDA kernel libraries (csrc/pack_kernel.cu,
+   csrc/block_pack_kernel.cu, csrc/apply_kernel.cu and the scan kernel
+   csrc/dct_kernel.cu, nvcc, sm_90a) and the host C++ (csrc/host/) from the
+   checkout's sources, all five compilers started together; print each
+   kernel's ptxas line (registers, static shared memory, spills);
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
    planes with the pack's edge cases (block counts that are and are not a
@@ -44,7 +46,11 @@ after:
    size over the three outputs x use_base_cg x 1-/3-channel gain x gamma
    {1, 1.571}, and on testing.apply_edge_inputs (grid ties, values outside
    [0, 1], NaN) at a size with H*W % 4 == 0 and one without, twice: the
-   packed outputs must be bit-identical;
+   packed outputs must be bit-identical; and the scan kernel against
+   ``dct.scan_inputs_plain`` on 4:2:0, 4:4:4, RGB 4:4:4 and 4:0:0 scans
+   (one MCU, 31 and 32 MCUs, phase 3's MCU grids with ragged edges, flat
+   planes at quality 100 and 1, column and row slices), two scans back to
+   back and planes through ``forward_plane``, torch.equal;
 4. three encodes per configuration (the reference benchmark's: map scale 4,
    single-channel gain map; the library default: scale 1, 3-channel) of
    ``testing.photo_p010(3840, 2160)``, then two each of
@@ -55,9 +61,12 @@ after:
    bytes equal the same encode with the plain entropy stage on the card,
    and every request launched the pack kernel once.  Small P010, RGB and
    YUV444_10 images encoded on the card are held against the port's CPU
-   encode.  Prints each request's ms and MP/s and the pack kernel's (alone
+   encode.  Prints each request's ms and MP/s, the pack kernel's (alone
    and through its wrapper) and its plain version's time at the 4K shapes
-   (CUDA events) beside its bound;
+   (CUDA events) beside its bound, and the scan kernel's on the request's
+   two scans (alone and through ``dct.scan_inputs``), the plain
+   composition's, and the kernel's on the luma plane alone, beside their
+   bounds;
 4b. API-1 through ``UhdrEncoder``: the P010 HDR of phase 4 with
    ``JpegR(device="cuda").tone_map`` of it as the SDR (YUV420, Display-P3),
    REALTIME and BEST_QUALITY (the two-pass gain map) in both
@@ -104,7 +113,9 @@ after:
    launches, each output bit-identical to the per-image route;
 10. one RGBA8888 / SRGB decode per configuration through ``UhdrDecoder`` on
    the card (no kernel launch), its image and gain map equal to the same
-   decode on CPU tensors; prints its ms;
+   decode on CPU tensors, and two on the host SRGB engine
+   (``UHDR_TPU_DECODE_ENGINE=host``; equal to ``decode_to_rgba(engine=
+   "host")``, within 2 codes of the card's); prints their ms;
 12. the general decode path at 4K, each request through
    ``UhdrDecoder(device="cuda")`` (or ``JpegR.decode(use_fused=False)``):
    API-0 files at map scale 7 (a 548x308 map, factor 7.007: the float-
@@ -135,8 +146,9 @@ after:
 17. the batch and multi-GPU layer (``parallel``) over meshes that repeat
    the card (and over distinct cards where there are several):
    ``sharded_encode_jpeg_step`` of ``photo_p010(8192, 4608)`` over (1, 4)
-   in both configurations, four pack launches each, its assembled base
-   scan (at scale 1 also the gain-map scan and the file, which
+   in both configurations, four pack launches and eight scan-kernel
+   launches each (every shard's scans equal to the plain composition), its
+   assembled base scan (at scale 1 also the gain-map scan and the file, which
    ``JpegR.decode`` reads) byte for byte the single-device ones;
    ``sharded_encode_step`` one-pass (bit-identical) and two-pass (map within
    1, bounds within 1e-6 relative) over (2, 2) with two 4K images and over
@@ -339,8 +351,44 @@ def main() -> int:
                "pack_tiles": pk.PACK_TILES_KERNEL,
                "apply_gainmap": ak.APPLY_KERNEL,
                "forward_dct": dct.FORWARD_DCT_KERNEL}
-    # every forward-DCT launch read on a path, for the records
+    # every scan-kernel launch read on a path, for the records
     dct_launches = [0]
+    # every scan the paths build (dct.scan_inputs, one kernel launch a
+    # scan) and every plane of the general path's encoder (forward_plane),
+    # with what the kernel gave the request, held against the plain
+    # version on the same inputs when the path's counts are read
+    built = []
+    real_scan_inputs, real_forward_plane = dct.scan_inputs, dct.forward_plane
+
+    def recording_scan_inputs(scans):
+        out = real_scan_inputs(scans)
+        built.append(("scans", scans, out))
+        return out
+
+    def recording_forward_plane(plane, q):
+        out = real_forward_plane(plane, q)
+        built.append(("plane", (plane, q), out))
+        return out
+
+    from libultrahdr_tpu_torch.jpeg import encoder as jpeg_encoder
+    dct.scan_inputs = recording_scan_inputs
+    jpeg_encoder.forward_plane = recording_forward_plane
+
+    def check_built(path: str) -> str:
+        """Hold every scan and plane built since the last check against the
+        plain composition on the card (torch.equal); clears them."""
+        torch.cuda.synchronize()
+        n_scans = n_planes = 0
+        for kind, args, out in built:
+            if kind == "scans":
+                want = dct.scan_inputs_plain(args)
+                n_scans += len(args)
+            else:
+                want, out = (dct.forward_plane_plain(*args),), (out,)
+                n_planes += 1
+            tensors_equal(out, want, f"{path}: scan kernel")
+        built.clear()
+        return f"{n_scans} scans and {n_planes} planes"
 
     def zero_counts():
         for kern in counted.values():
@@ -349,20 +397,23 @@ def main() -> int:
 
     def read_counts(path: str, want: dict) -> dict:
         """The launch counts after driving `path`; raises unless they are
-        `want` (kernels not named there: 0; the forward DCT, which every
-        JPEG encode launches once a plane, is checked only where named).
-        "apply_linear" counts the apply kernel's LINEAR launches among its
-        "apply_gainmap" ones."""
+        `want` (kernels not named there: 0; the scan kernel, unless named,
+        twice a pack launch: every fused encode packs its base and gain-map
+        scans, built one launch each, in one launch).  "apply_linear"
+        counts the apply kernel's LINEAR launches among its
+        "apply_gainmap" ones.  Then every scan and plane the path built
+        must equal its plain version."""
         got = {k: kern.launches for k, kern in counted.items()}
         got["apply_linear"] = ak.APPLY_KERNEL.linear_launches
         dct_launches[0] += got["forward_dct"]
         expect = {k: want.get(k, 0) for k in got}
         if "forward_dct" not in want:
-            expect["forward_dct"] = got["forward_dct"]
+            expect["forward_dct"] = 2 * expect["pack_scan"]
         if got != expect:
             raise AssertionError(f"{path}: kernel launches {got}, expected "
-                                 f"{want}")
-        log(f"launches on the {path} path: {got}")
+                                 f"{expect}")
+        log(f"launches on the {path} path: {got}; scan kernel == plain "
+            f"(torch.equal) on the {check_built(path)} it built")
         return got
 
     # ---- phase 2: build ---------------------------------------------------
@@ -534,40 +585,87 @@ def main() -> int:
         "and NaN at 64x48 and 53x37 (3 outputs x 1-/3-channel x gamma {1, "
         "1.571}): bit-identical, and the same run again")
 
-    # the forward DCT: one block, a CTA's worth and a ragged last CTA,
-    # flat planes at both ends of the range, quality 100 (every divisor 1)
-    # and 1, a column slice (not contiguous: the wrapper copies it) and a
-    # row slice (a view at an offset)
+    # the scan kernel on every edge layout: 4:2:0, 4:4:4, an RGB map
+    # (4:4:4 from R, G, B) and 4:0:0; one block, one strip of 31 MCUs and
+    # one more, phase 3's MCU grids above, sizes two short of whole MCUs
+    # (the edge clamp), flat planes at both ends of the range at quality
+    # 100 (every divisor 1) and 1, a column slice (not contiguous: the
+    # wrapper copies it) and a row slice (a view at an offset); then two
+    # scans back to back, and planes through forward_plane (raster order)
     from libultrahdr_tpu_torch.jpeg.tables import (STD_CHROMA_QUANT,
                                                    STD_LUMA_QUANT,
                                                    scaled_quant_table)
     rs = np.random.RandomState(3)
-    noise = torch.from_numpy(rs.randint(0, 256, (136, 1032)).astype(
+    noise = torch.from_numpy(rs.randint(0, 256, (3, 736, 1032)).astype(
         np.uint8)).to(dev)
+
+    def edge_scan(kind, w_, h_, quality, fill=None, view=None):
+        tables = [scaled_quant_table(t, quality) for t in (
+            STD_LUMA_QUANT, STD_CHROMA_QUANT, STD_CHROMA_QUANT)]
+        sub = {"420": [(h_, w_), (-(-h_ // 2), -(-w_ // 2))] + [
+            (-(-h_ // 2), -(-w_ // 2))], "444": [(h_, w_)] * 3,
+               "rgb": [(h_, w_)] * 3, "400": [(h_, w_)]}[kind]
+        planes = []
+        for i, (ph, pw) in enumerate(sub):
+            if fill is not None:
+                planes.append(torch.full((ph, pw), fill, dtype=torch.uint8,
+                                         device=dev))
+            elif view == "columns":
+                planes.append(noise[i, :ph, 8:8 + pw])
+            else:
+                planes.append(noise[i, 8:8 + ph, :pw] if view == "rows"
+                              else noise[i, :ph, :pw])
+        sampling = {"420": fused._SAMPLING_420,
+                    "400": fused._SAMPLING_400}.get(kind,
+                                                    fused._SAMPLING_444)
+        return fused._scan(planes, sampling, tables[:len(planes)],
+                           rgb=kind == "rgb")
+
     before = dct.FORWARD_DCT_KERNEL.launches
+    edge_cases = []
+    for kind in ("420", "444", "rgb", "400"):
+        step = 16 if kind == "420" else 8
+        for what, w_, h_, quality, fill, view in (
+                ("one MCU", step, step, 95, None, None),
+                ("31 MCUs", 31 * step, step, 95, None, None),
+                ("32 MCUs", 32 * step, 2 * step, 95, None, None),
+                ("24x16 MCUs", 24 * step, 16 * step, 95, None, None),
+                ("37x21 MCUs, 2 short", 37 * step - 2, 21 * step - 2, 90,
+                 None, None),
+                ("61x45 MCUs, 3 short", 61 * step - 3, 45 * step - 3, 60,
+                 None, None),
+                ("all 0", 3 * step, 2 * step, 100, 0, None),
+                ("all 255", 3 * step, 2 * step, 1, 255, None),
+                ("column slice", 5 * step - 1, 3 * step, 100, None,
+                 "columns"),
+                ("row slice", 9 * step, 4 * step + 3, 50, None, "rows")):
+            edge_cases.append((f"{kind} {what}",
+                               edge_scan(kind, w_, h_, quality, fill, view)))
+    for what, scan in edge_cases:
+        tensors_equal(dct.scan_inputs([scan]), dct.scan_inputs_plain([scan]),
+                      f"scan kernel on {what}")
+    pair = [edge_cases[3][1], edge_cases[23][1]]
+    tensors_equal(dct.scan_inputs(pair), dct.scan_inputs_plain(pair),
+                  "scan kernel on two scans back to back")
     for what, plane, quality in (
-            ("one block", noise[:8, :8], 95),
-            ("128 blocks", noise[:64, :128], 95),
-            ("17 x 129 blocks", noise[:, :1032], 95),
-            ("all 0", torch.zeros((16, 24), dtype=torch.uint8,
-                                  device=dev), 100),
-            ("all 255", torch.full((16, 24), 255, dtype=torch.uint8,
-                                   device=dev), 1),
-            ("column slice", noise[:32, 8:72], 100),
-            ("row slice", noise[8:40], 50)):
+            ("one block", noise[0, :8, :8], 95),
+            ("129 x 92 blocks", noise[0, :, :1032], 95),
+            ("a column slice", noise[1, :64, 8:112], 80)):
         for table in (STD_LUMA_QUANT, STD_CHROMA_QUANT):
             q = scaled_quant_table(table, quality)
-            got = dct.forward_plane(plane, q)
-            want = dct.forward_plane_plain(plane, q)
-            if not torch.equal(got, want):
-                raise AssertionError(f"forward DCT kernel != plain on {what}"
-                                     f", {int((got != want).sum())} "
-                                     "coefficients differ")
-    if dct.FORWARD_DCT_KERNEL.launches != before + 14:
-        raise AssertionError("phase 3 did not launch the forward DCT kernel")
-    log("phase 3 forward DCT kernel == plain (torch.equal) on 7 planes x 2 "
-        "tables: 1, 128 and 17 x 129 blocks, flat 0 at quality 100, flat "
-        "255 at quality 1, a column slice and a row slice")
+            tensors_equal((dct.forward_plane(plane, q),),
+                          (dct.forward_plane_plain(plane, q),),
+                          f"forward_plane on {what}")
+    built.clear()
+    launched = dct.FORWARD_DCT_KERNEL.launches - before
+    if launched != len(edge_cases) + 2 + 6:
+        raise AssertionError(f"phase 3 launched the scan kernel {launched} "
+                             "times")
+    log(f"phase 3 scan kernel == plain (torch.equal) on {len(edge_cases)} "
+        "edge scans (4:2:0, 4:4:4, RGB and 4:0:0 x one MCU, 31 and 32 MCUs, "
+        "24x16, 37x21 and 61x45 MCUs with ragged edges, flat 0 at quality "
+        "100, flat 255 at quality 1, a column and a row slice), two scans "
+        "back to back, and 3 planes x 2 tables through forward_plane")
     # ---- phase 4: the encode paths ---------------------------------------
     w, h = 3840, 2160
     configs = {"benchmark": dict(scale=4, multichannel=False),
@@ -621,9 +719,9 @@ def main() -> int:
             quality=95, map_quality=95,
             use_base_cg=fused._use_base_cg(CG.DISPLAY_P3, cg, jr.write_xmp),
             **bb_kw)
-        for jpeg, (coeffs, layout) in zip((primary, gm_jpeg), scans):
+        for jpeg, (src, layout) in zip((primary, gm_jpeg), scans):
             got = testing.decode_scan_coeffs(jpeg, layout)
-            for g, c in zip(got, coeffs):
+            for g, c in zip(got, testing.scan_coeffs(src, layout)):
                 if not np.array_equal(g, c.cpu().numpy()):
                     raise AssertionError(f"{what}: decoded scan != device "
                                          "coefficients")
@@ -644,9 +742,9 @@ def main() -> int:
     for cfg, kw in configs.items():
         outputs[cfg] = [encode(img, kw, f"P010 {cfg} request {req}")
                         for req in range(3)]
-    # the forward DCT once a plane: 3 base planes and the map's 1 or 3
+    # the scan kernel twice a request: the base and the gain-map scan
     p010_launches = read_counts("P010 encode", {"pack_scan": 6,
-                                                "forward_dct": 30})
+                                                "forward_dct": 12})
 
     kernel_rows, dct_rows, p010_scans, p010_jpegs = {}, {}, {}, {}
     for cfg, kw in configs.items():
@@ -657,9 +755,10 @@ def main() -> int:
             data, img, kw, fused._api0_p010_block_buffers, p010_planes,
             fused.encode_api0_p010_fused, f"P010 {cfg}",
             rng=port.ColorRange.FULL)
-        p010_scans[cfg], p010_jpegs[cfg] = scans, (primary, gm_jpeg)
-        ins = [torch.cat(p) for p in zip(*(
-            device_entropy.stream_inputs(c, lay) for c, lay in scans))]
+        p010_scans[cfg] = [(testing.scan_coeffs(src, lay), lay)
+                           for src, lay in scans]
+        p010_jpegs[cfg] = (primary, gm_jpeg)
+        ins = dct.scan_inputs(scans)
         kw_, kb_ = pk.pack_scan(*ins)
         pw_, pb_ = pk.pack_scan_plain(*ins)
         err = max_abs_err(kw_, kb_, pw_, pb_)
@@ -690,44 +789,54 @@ def main() -> int:
             f"{plain_ms2:.3f} ms (CUDA events), bound {b_ms:.4f} ms "
             f"({b_by}, {nbytes(*ins, kw_, kb_) / 1e6:.1f} MB) | {card}")
 
-        # the forward DCT kernel on the planes this request's encode hands
-        # it (recorded at fused's call), each against the plain version;
-        # timed on the luma plane
-        dct_inputs, real_dct = [], fused.forward_plane
-        fused.forward_plane = lambda p, q: (dct_inputs.append((p, q)),
-                                            real_dct(p, q))[1]
-        try:
-            fused._api0_p010_block_buffers(
-                *fused.upload_p010(img, dev), cg=CG.BT2100, ct=CT.HLG,
-                rng=port.ColorRange.FULL, scale=kw["scale"],
-                multichannel=kw["multichannel"], gamma=1.0, quality=95,
-                map_quality=95, use_base_cg=True)
-        finally:
-            fused.forward_plane = real_dct
-        for i, (p, q) in enumerate(dct_inputs):
-            if not torch.equal(dct.forward_plane(p, q),
-                               dct.forward_plane_plain(p, q)):
-                raise AssertionError(f"{cfg}: forward DCT kernel != plain "
-                                     f"on plane {i} {tuple(p.shape)}")
-        luma, q = dct_inputs[0]
-        coeffs = dct.forward_plane(luma, q)
-        d_ms = [cuda_ms(lambda: dct.forward_plane(luma, q), 20)
+        # the scan kernel on this request's two scans (those of
+        # check_encode: the request's stages rerun): alone (both launches
+        # into one set of inputs), through its dispatcher, and the plain
+        # composition; and on the luma plane alone (forward_plane)
+        def scan_launches():
+            off = 0
+            for src_, lay_ in scans:
+                n_ = lay_.mcus_h * lay_.bpr
+                dct.FORWARD_DCT_KERNEL.scan(src_, lay_, *(
+                    t[off:off + n_] for t in ins))
+                off += n_
+
+        d_kernel = [testing.launch_ms(scan_launches) for _ in range(2)]
+        d_ms = [cuda_ms(lambda: real_scan_inputs(scans), 20)
                 for _ in range(2)]
-        d_plain = [cuda_ms(lambda: dct.forward_plane_plain(luma, q), 5)
+        d_plain = [cuda_ms(lambda: dct.scan_inputs_plain(scans), 5)
                    for _ in range(2)]
-        # per block: 2 passes x 64 outputs x 8 products and sums, 64
-        # divisions and roundings
-        d_bound, d_by = bound(nbytes(luma, coeffs),
-                              (2 * 64 * 16 + 128) * coeffs[..., 0].numel())
-        dct_rows[cfg] = dict(ms=sum(d_ms) / 2, plain_ms=sum(d_plain) / 2,
-                             err=0, bound_ms=d_bound, bound_by=d_by)
-        log(f"phase 4 forward DCT kernel {cfg}: == plain (torch.equal) on "
-            f"the request's {len(dct_inputs)} planes "
-            f"{[tuple(p.shape) for p, _ in dct_inputs]}; luma "
-            f"{tuple(luma.shape)} kernel {d_ms[0]:.4f}/{d_ms[1]:.4f} ms, "
-            f"plain {d_plain[0]:.3f}/{d_plain[1]:.3f} ms (CUDA events), "
-            f"bound {d_bound:.4f} ms ({d_by}) | {card}")
-        del dct_inputs, luma, coeffs
+        luma, q = scans[0][0].planes[0], scans[0][0].qtables[0]
+        d_luma = [testing.launch_ms(lambda: dct.forward_plane(luma, q))
+                  for _ in range(2)]
+        built.clear()
+        # bytes: the source planes read once, 136 bytes a block written;
+        # operations: 1,920 multiplies and adds and 64 divisions a block,
+        # and an RGB source's conversion, 10 a sample and component
+        n_blocks = ins[0].shape[0]
+        src_bytes = sum(nbytes(*src_.planes) for src_, _ in scans)
+        ops = (1920 + 64) * n_blocks + sum(
+            30 * lay_.mcus_h * lay_.bpr * 64 // 3
+            for src_, lay_ in scans if src_.rgb)
+        d_bound, d_by = bound(src_bytes + nbytes(*ins), ops)
+        l_bound, _ = bound(nbytes(luma) + 128 * (luma.numel() // 64),
+                           (1920 + 64) * (luma.numel() // 64))
+        dct_rows[cfg] = dict(ms=sum(d_ms) / 2, kernel_ms=sum(d_kernel) / 2,
+                             plain_ms=sum(d_plain) / 2, err=0,
+                             bound_ms=d_bound, bound_by=d_by,
+                             luma_ms=sum(d_luma) / 2, luma_bound_ms=l_bound)
+        log(f"phase 4 scan kernel {cfg}: {n_blocks} blocks in 2 scans "
+            f"({[lay_.sampling for _, lay_ in scans]}, RGB map "
+            f"{scans[1][0].rgb}), kernel alone {d_kernel[0]:.4f}/"
+            f"{d_kernel[1]:.4f} ms, dispatcher {d_ms[0]:.4f}/{d_ms[1]:.4f} "
+            f"ms, plain {d_plain[0]:.3f}/{d_plain[1]:.3f} ms (CUDA events), "
+            f"bound {d_bound:.4f} ms ({d_by}; {(src_bytes + nbytes(*ins)) / 1e6:.1f}"
+            f" MB, {ops / 1e9:.3f} G float ops, at the float32 issue rate "
+            f"{ops / 33.5e12 * 1e3:.4f} ms), {d_bound / (sum(d_kernel) / 2):.0%}"
+            f" of it; the luma plane {tuple(luma.shape)} alone "
+            f"{d_luma[0]:.4f}/{d_luma[1]:.4f} ms, bound {l_bound:.4f} ms "
+            f"| {card}")
+        del ins, luma
 
     # RGBA1010102 / RGBAF16 and YUV444_10 (raw upload, 4:4:4 base):
     # name -> (image, its block buffers, their planes and keywords, encode)
@@ -752,7 +861,7 @@ def main() -> int:
                 for req in range(2)]
     rgb_launches = read_counts("RGB and YUV444_10 encode",
                                {"pack_scan": 2 * len(rgb_outputs),
-                                "forward_dct": 10 * len(rgb_outputs)})
+                                "forward_dct": 4 * len(rgb_outputs)})
     for (rname, cfg), datas in rgb_outputs.items():
         if datas[0] != datas[1]:
             raise AssertionError(f"{rname} {cfg}: the two requests differ")
@@ -924,9 +1033,9 @@ def main() -> int:
                                rtol=1e-4):
                 raise AssertionError(f"{what}: ISO {f} {getattr(md, f)} != "
                                      f"{getattr(want_md, f)}")
-        for jpeg, (coeffs, layout) in zip((primary, gm_jpeg), scans):
+        for jpeg, (src, layout) in zip((primary, gm_jpeg), scans):
             for g, c in zip(testing.decode_scan_coeffs(jpeg, layout),
-                            coeffs):
+                            testing.scan_coeffs(src, layout)):
                 if not np.array_equal(g, c.cpu().numpy()):
                     raise AssertionError(f"{what}: decoded scan != device "
                                          "coefficients")
@@ -979,7 +1088,10 @@ def main() -> int:
                       for name, configure in (("API-2", api2),
                                               ("API-3", api3),
                                               ("API-4", api4))}
-    compressed_launches = read_counts("API-2/3/4 encode", {})
+    # API-2 and API-3 compress the 3-channel map on the general path: one
+    # forward_plane launch a plane
+    compressed_launches = read_counts("API-2/3/4 encode",
+                                      {"forward_dct": 6})
     jr_d = port.JpegR(device="cuda")
     for api, data in compressed_out.items():
         out_primary, out_gm, md = testing.read_jpegr(data)
@@ -997,11 +1109,12 @@ def main() -> int:
             continue
         sdr_i = sdr_img
         if api == "API-3":
-            planes, fmt = jpeg_decoder.decode_to_planes(sdr_jpeg, None, dev)
+            planes, fmt = jpeg_decoder.decode_to_planes(sdr_jpeg, None,
+                                                        device=dev)
             sdr_i = port.RawImage(fmt, CG.DISPLAY_P3, CT.SRGB,
                                   port.ColorRange.FULL, w, h, planes)
             on_cpu, _ = jpeg_decoder.decode_to_planes(
-                sdr_jpeg, None, torch.device("cpu"))
+                sdr_jpeg, None, device=torch.device("cpu"))
             for p_card, p_cpu in zip(planes, on_cpu):
                 if not torch.equal(p_card.cpu(), p_cpu):
                     raise AssertionError("API-3: SDR planes decoded on the "
@@ -1397,6 +1510,37 @@ def main() -> int:
             f"{w * h / srgb_ms / 1e3:.2f} MP/s, RGBA8888 {img_g.w}x{img_g.h} "
             f"and gain map {Fmt(gm_g.fmt).name} {gm_g.w}x{gm_g.h} == the "
             f"decode on CPU tensors, byte for byte | {card}")
+        # the host SRGB engine (UHDR_TPU_DECODE_ENGINE=host), twice, beside
+        # the card's: no launch, the JAX package's engine (the CPU tests
+        # hold its bytes), within 2 codes of the card's islow decode
+        host_ms = []
+        os.environ["UHDR_TPU_DECODE_ENGINE"] = "host"
+        try:
+            for _ in range(2):
+                zero_counts()
+                t0 = time.perf_counter()
+                dec = port.UhdrDecoder(device="cuda")
+                dec.set_image(outputs[cfg][0])
+                dec.set_out_color_transfer(CT.SRGB)
+                dec.set_out_img_format(Fmt.RGBA8888)
+                img_h = dec.decode()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                read_counts(f"SRGB decode {cfg}, host engine", {})
+        finally:
+            del os.environ["UHDR_TPU_DECODE_ENGINE"]
+        primary_h, _, _ = testing.read_jpegr(outputs[cfg][0])
+        if not np.array_equal(img_h.planes[0], jpeg_decoder.decode_to_rgba(
+                primary_h, engine="host")):
+            raise AssertionError(f"SRGB host engine {cfg}: != "
+                                 "decode_to_rgba(engine='host')")
+        gap = np.abs(img_h.planes[0].view(np.uint8).astype(np.int16)
+                     - img_g.planes[0].view(np.uint8)).max()
+        if gap > 2:
+            raise AssertionError(f"SRGB host engine {cfg}: {gap} codes from "
+                                 "the card's decode")
+        log(f"phase 10 SRGB decode {cfg}, host engine: {host_ms[0]:.1f} / "
+            f"{host_ms[1]:.1f} ms against the card's {srgb_ms:.1f}; at most "
+            f"{gap} codes from it | {card}")
 
     # ---- phase 12: the general decode path --------------------------------
     # 4K streams that only the general path takes, each decoded through
@@ -1430,11 +1574,12 @@ def main() -> int:
         and its base's luma re-compressed as a YUV400 base (the port's
         JpegEncoder), each wrapped through API-4."""
         gm_info = jpeg_decoder.parse_jpeg(b_gm)
-        (gy,), _ = jpeg_decoder.decode_to_planes(b_gm, gm_info, dv)
+        (gy,), _ = jpeg_decoder.decode_to_planes(b_gm, gm_info, device=dv)
         cropped = JpegEncoder(dv).compress(
             yuv400(gy[:crop_rows].contiguous()), 95, icc=gm_info.icc,
             gainmap_comment=True)
-        (by, _, _), _ = jpeg_decoder.decode_to_planes(b_primary, None, dv)
+        (by, _, _), _ = jpeg_decoder.decode_to_planes(b_primary, None,
+                                                      device=dv)
         gray = JpegEncoder(dv).compress(yuv400(by), 95, icc=icc_p3)
         return (api4_file(testing.without_app_segments(b_primary, True),
                           cropped, b_md),
@@ -1446,8 +1591,10 @@ def main() -> int:
                        f"P010 map scale 7 {3 if mc else 1}-channel", "12")
             for mc in (False, True)}
     resized, gray = general_files(b_primary, b_gm, b_md, dev, 480)
+    # two fused encodes (2 scans each) and two YUV400 compressions on the
+    # general path (one plane each)
     general_input_launches = read_counts("the general path's input encodes",
-                                         {"pack_scan": 2})
+                                         {"pack_scan": 2, "forward_dct": 6})
     progressive = testing.PROGRESSIVE_FIXTURE.read_bytes()
     general = [  # (what, file, output, use_fused)
         ("fractional 1-channel", frac[False], CT.HLG, True),
@@ -2284,11 +2431,10 @@ def main() -> int:
             step(y8k, uv8k)                                   # warm-up
             zero_counts()
             outs, step_ms = host_ms(lambda: step(y8k, uv8k))
-            # per shard: 3 base planes and the map's 1 or 3
+            # per shard: its base and gain-map scans, one pack
             sharded_pack_launches += read_counts(
                 f"sharded JPEG encode {cfg} ({mesh_name} mesh)",
-                {"pack_scan": 4, "forward_dct": 4 * (
-                    3 + (3 if kw["multichannel"] else 1))})["pack_scan"]
+                {"pack_scan": 4})["pack_scan"]
             # each shard's pack launch against the plain pack on the same
             # stream inputs (the shard's rows through the same stages)
             for s in range(4):
@@ -2556,9 +2702,12 @@ def main() -> int:
         record("apply_gainmap_linear", "apply_kernel.cu",
                "ops/pallas_apply.py:164", linear,
                apply_rows["default", CT.LINEAR], apply_err),
-        # the JAX forward DCT is an XLA matrix product, no pallas_call: the
-        # kernel gives every plane size the same rounding (jpeg/dct.py)
-        record("forward_dct", "dct_kernel.cu", "jpeg/dct.py:151",
+        # the JAX package builds a scan with XLA ops (its forward DCT a
+        # matrix product), no pallas_call: the scan kernel gives every
+        # plane size the same rounding (jpeg/dct.py)
+        record("forward_dct", "dct_kernel.cu",
+               "fused.py:62 (_scan_coeffs, jpeg/dct.py:151 forward_plane; "
+               "jpeg/pack_kernel.py:559 _stream_inputs)",
                dct_launches[0], dct_rows["default"],
                max(r["err"] for r in dct_rows.values()))]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "

@@ -49,9 +49,10 @@ from .jpegr import (DEFAULT_ENC_PRESET, DEFAULT_GAINMAP_GAMMA,
                     DEFAULT_USE_MULTI_CHANNEL_GAINMAP, FLT_MAX, JpegR,
                     resolve_device)
 from .types import (Codec, ColorGamut, ColorRange, ColorTransfer,
-                    CompressedImage, EncPreset, GainMapMetadata, ImgFmt,
-                    ImgLabel, MIN_HEIGHT, MIN_WIDTH, MirrorDirection,
-                    RawImage, UHDR_MAX_DIMENSION)
+                    CompressedImage, EncPreset, GainMapMetadata,
+                    HDR_INPUT_FORMATS, ImgFmt, ImgLabel, MIN_HEIGHT,
+                    MIN_WIDTH, MirrorDirection, RawImage,
+                    UHDR_MAX_DIMENSION)
 
 
 # ---------------------------------------------------------------------------
@@ -559,11 +560,12 @@ class UhdrDecoder(_Context):
         ``auto`` (the default) and ``device``: ``JpegR.decode`` on the
         decoder's device, the fused route or, for the streams it does not
         take, the general path; ``general``: the general path always;
-        ``host``: the native host engine ``JpegR.decode_host`` for HDR
-        outputs, raising ``unsupported`` for the streams it does not take,
-        with no retry.  Unlike the JAX package's ``auto``, which tries the
-        host engine first (a slow TPU link made it the faster one), ``auto``
-        stays on the device.  ``enable_gpu_acceleration(False)`` takes the
+        ``host``: the native host engine, ``JpegR.decode_host`` for HDR
+        outputs (raising ``unsupported`` for the streams it does not take,
+        with no retry) and ``JpegR.decode(engine="host")`` for SRGB.
+        Unlike the JAX package's ``auto``, which tries the host engine
+        first (a slow TPU link made it the faster one), ``auto`` stays on
+        the device.  ``enable_gpu_acceleration(False)`` takes the
         general path whatever the engine.  The effect queue then edits the
         output and the gain map on the host (``_apply_decoder_effects``)."""
         if self._sailed:
@@ -590,7 +592,9 @@ class UhdrDecoder(_Context):
                 self._data, output_ct=ct, output_fmt=fmt,
                 max_display_boost=self._max_display_boost,
                 return_gainmap=True,
-                use_fused=self._gpu and engine != "general")
+                use_fused=self._gpu and engine != "general",
+                engine="host" if self._gpu and engine == "host"
+                else "device")
         self._decoded = dest
         self._gainmap_img = gm_img
         if self._effects:

@@ -1,7 +1,9 @@
-"""Batched 8x8 DCTs in PyTorch: the forward float DCT of the encode and the
-bit-exact islow IDCT of the decode.
+"""Batched 8x8 DCTs in PyTorch: the forward DCT of the encode, built into
+a whole scan's pack inputs, and the bit-exact islow IDCT of the decode.
 
-Port of ``libultrahdr_tpu/jpeg/dct.py``:
+Port of ``libultrahdr_tpu/jpeg/dct.py`` (and of the scan glue around its
+forward DCT: the JAX ``fused._scan_coeffs``, ``_pad_edge``,
+``_rgb_to_ycbcr`` and ``pack_kernel._stream_inputs``):
 
 - ``forward_plane``: the level shift, the two 8-point passes, quantisation
   (round half to even, like libjpeg ISLOW's descale) and the zigzag
@@ -14,11 +16,21 @@ Port of ``libultrahdr_tpu/jpeg/dct.py``:
   the rounding, by the batch size (``chip_smoke.py`` phase 17 counts the
   coefficients of an 8192x4608 luma plane that move when it is cut into 4
   row shards).  ``forward_plane_plain`` is that arithmetic as elementwise
-  tensor ops; on the card ``forward_plane`` launches
-  ``csrc/dct_kernel.cu``, the same arithmetic in one kernel.  The JAX
-  package's HIGHEST-precision product sums in another order, so a
-  quantised coefficient of the two packages may differ where it lies at a
-  rounding tie.
+  tensor ops.  The JAX package's HIGHEST-precision product sums in another
+  order, so a quantised coefficient of the two packages may differ where
+  it lies at a rounding tie.
+- ``scan_inputs``: the scans of a request (``ScanPlanes`` and a
+  ``ScanLayout`` each: unpadded u8 planes, an RGB source converted to
+  YCbCr first) -> the pack kernel's inputs for all of them, back to back.
+  Its plain version ``scan_inputs_plain`` is the composition ``pad_edge``
+  -> ``rgb_to_ycbcr`` -> ``forward_plane_plain`` ->
+  ``device_entropy.stream_inputs`` -> concatenation.  On the card both
+  dispatchers launch ``csrc/dct_kernel.cu``, one launch a scan (a plane is
+  a one-component scan in raster order), which equals the plain version
+  bit for bit; ``FORWARD_DCT_KERNEL`` counts the launches.
+- ``fdct8x8`` / ``idct8x8`` and ``blockify`` / ``pad_to_block_multiple``:
+  the float DCT pair of the reference's exported math surface (no encode
+  or decode runs them).
 - ``inverse_plane``: dequantisation, libjpeg's jpeg_idct_islow butterfly and
   its range-limit table, entirely in int32 tensor ops.  torch's int32
   arithmetic wraps in two's complement on the CPU and on CUDA, ``>>`` on
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +51,7 @@ import torch
 from .._buildlib import CudaLibrary, check_launch
 from ..errors import unsupported
 from ..ops.pixel import to_device
+from . import device_entropy
 from .tables import INV_ZIGZAG, ZIGZAG_ORDER
 
 
@@ -52,6 +66,57 @@ def dct_matrix() -> np.ndarray:
     d = 0.5 * np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16.0)
     d[0, :] = np.sqrt(1.0 / 8.0)
     return d.astype(np.float32)
+
+
+def pad_to_block_multiple(plane: torch.Tensor, fill=None) -> torch.Tensor:
+    """Pad (H, W) to multiples of 8 by edge replication (fill overrides)."""
+    h, w = plane.shape
+    ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+    if fill is None:
+        return pad_edge(plane, ph, pw)
+    out = torch.full((ph, pw), fill, dtype=plane.dtype, device=plane.device)
+    out[:h, :w] = plane
+    return out
+
+
+def blockify(plane: torch.Tensor) -> torch.Tensor:
+    """(H, W) -> (bh, bw, 8, 8); H, W must be multiples of 8."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
+
+
+def fdct8x8(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward 2-D DCT on float (..., 8, 8): D @ x @ D^T."""
+    d = to_device(dct_matrix(), blocks.device).to(blocks.dtype)
+    return d @ blocks @ d.T
+
+
+def idct8x8(coeffs: torch.Tensor) -> torch.Tensor:
+    """Inverse 2-D DCT on float (..., 8, 8): D^T @ X @ D (float reference
+    form)."""
+    d = to_device(dct_matrix(), coeffs.device).to(coeffs.dtype)
+    return d.T @ coeffs @ d
+
+
+def pad_edge(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge-replicate pad of an (h, w) plane to (ph, pw), any dtype."""
+    h, w = p.shape
+    if h == ph and w == pw:
+        return p
+    rows = torch.arange(ph, device=p.device).clamp(max=h - 1)
+    cols = torch.arange(pw, device=p.device).clamp(max=w - 1)
+    return p.index_select(0, rows).index_select(1, cols)
+
+
+def rgb_to_ycbcr(rgb_u8_chw):
+    """libjpeg full-range Rec.601 RGB->YCbCr (jccolor.c) on (3, H, W) (or
+    three (H, W) planes)."""
+    r, g, b = (rgb_u8_chw[i].to(torch.float32) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
+    return [torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
+            for p in (y, cb, cr)]
 
 
 def forward_plane_plain(plane_u8: torch.Tensor,
@@ -77,59 +142,175 @@ def forward_plane_plain(plane_u8: torch.Tensor,
     return flat[..., to_device(np.asarray(ZIGZAG_ORDER, np.int64), dev)]
 
 
+class ScanPlanes(NamedTuple):
+    """A scan's sources: its components' unpadded uint8 (h, w) planes in
+    the order of the layout's sampling (for ``rgb``, the R, G and B planes
+    of a 4:4:4 scan, converted to Y, Cb, Cr) and each component's
+    quantisation table in natural order."""
+
+    planes: list
+    qtables: list
+    rgb: bool = False
+
+
+def scan_coeffs_plain(src: ScanPlanes, layout) -> list:
+    """The scan's zigzagged (bh, bw, 64) int16 coefficient planes, each
+    component edge-padded to whole MCUs (plain version)."""
+    planes = rgb_to_ycbcr(src.planes) if src.rgb else src.planes
+    return [forward_plane_plain(
+                pad_edge(p, layout.mcus_h * vs * 8, layout.mcus_w * hs * 8),
+                q)
+            for p, (hs, vs), q in zip(planes, layout.sampling, src.qtables)]
+
+
+def scan_inputs_plain(scans):
+    """Plain version of ``scan_inputs``: each scan's stream inputs, then one
+    concatenation."""
+    parts = [device_entropy.stream_inputs(scan_coeffs_plain(src, lay), lay)
+             for src, lay in scans]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 DCT_LIB = CudaLibrary("dct_kernel", {
-    "uhdr_forward_dct": [_PTR, _I64, _I64, _PTR, _PTR, _PTR]})
+    "uhdr_build_scan": [_PTR, ctypes.c_int, _PTR, _PTR, _PTR, _PTR]})
+_MAX_BLOCKS = 10
 
 
-class _DctParams(ctypes.Structure):
-    """csrc/dct_kernel.cu DctParams: D row-major, the quantisation table in
-    natural order, each natural index's zigzag position."""
-    _fields_ = [("d", ctypes.c_float * 64), ("q", ctypes.c_float * 64),
-                ("pos", ctypes.c_int * 64)]
+class _ScanParams(ctypes.Structure):
+    """csrc/dct_kernel.cu ScanParams."""
+    _fields_ = [("d", ctypes.c_float * 64),
+                ("q", (ctypes.c_float * 64) * 3),
+                ("pos", ctypes.c_int * 64),
+                ("src", _PTR * 3), ("stride", _I64 * 3),
+                ("h", ctypes.c_int * 3), ("w", ctypes.c_int * 3),
+                ("hs", ctypes.c_int * 3), ("vs", ctypes.c_int * 3),
+                ("comp_of", ctypes.c_int * _MAX_BLOCKS),
+                ("prev_of", ctypes.c_int * _MAX_BLOCKS),
+                ("first_of", ctypes.c_int * _MAX_BLOCKS),
+                ("n_comp", ctypes.c_int), ("mcus_w", ctypes.c_int),
+                ("mcus_h", ctypes.c_int), ("bpm", ctypes.c_int),
+                ("bpr", ctypes.c_int)]
 
 
-@functools.lru_cache(maxsize=16)
-def _dct_params(q: bytes) -> _DctParams:
-    params = _DctParams()
-    params.d[:] = dct_matrix().ravel().tolist()
-    params.q[:] = np.frombuffer(q, np.float32).tolist()
-    params.pos[:] = np.asarray(INV_ZIGZAG).tolist()
-    return params
+@functools.lru_cache(maxsize=64)
+def _scan_params(sampling: tuple, mcus_w: int, mcus_h: int,
+                 q: bytes) -> bytes:
+    """The launch-independent part of a scan's ScanParams (D, the tables,
+    the zigzag positions, the MCU's blocks and their DC predecessors), as
+    bytes to copy from."""
+    p = _ScanParams()
+    p.d[:] = dct_matrix().ravel().tolist()
+    for c, row in enumerate(np.frombuffer(q, np.float32).reshape(-1, 64)):
+        p.q[c][:] = row.tolist()
+    p.pos[:] = np.asarray(INV_ZIGZAG).tolist()
+    b = 0
+    for c, (hs, vs) in enumerate(sampling):
+        p.hs[c], p.vs[c] = hs, vs
+        n = hs * vs
+        for i in range(n):
+            p.comp_of[b + i] = c
+            p.first_of[b + i] = i == 0
+            p.prev_of[b + i] = b + (n - 1 if i == 0 else i - 1)
+        b += n
+    p.n_comp, p.mcus_w, p.mcus_h, p.bpm = len(sampling), mcus_w, mcus_h, b
+    p.bpr = b * mcus_w
+    return bytes(p)
 
 
 class _ForwardDctKernel:
-    """Wrapper of csrc/dct_kernel.cu: launch and launch count."""
+    """Wrapper of csrc/dct_kernel.cu: checks, one launch a scan, and the
+    launch count."""
 
     def __init__(self):
         self.launches = 0
 
+    @staticmethod
+    def _check(src: ScanPlanes, layout):
+        planes = src.planes
+        dev = planes[0].device
+        n = len(layout.sampling)
+        if dev.type != "cuda":
+            raise ValueError(f"forward DCT kernel needs CUDA tensors, got "
+                             f"{dev}")
+        if len(planes) != n or len(src.qtables) != n or n > 3 or (
+                src.rgb and (n != 3 or any(
+                    s != (1, 1) for s in layout.sampling))):
+            raise ValueError(f"forward DCT kernel: {len(planes)} planes and "
+                             f"{len(src.qtables)} tables for sampling "
+                             f"{layout.sampling} (rgb={src.rgb})")
+        if layout.bpr * layout.mcus_w and layout.bpr // layout.mcus_w > \
+                _MAX_BLOCKS:
+            raise ValueError(f"forward DCT kernel: more than {_MAX_BLOCKS} "
+                             f"blocks an MCU in {layout.sampling}")
+        out = []
+        for p in planes:
+            if p.device != dev or p.dtype != torch.uint8 or p.dim() != 2 \
+                    or 0 in p.shape:
+                raise ValueError(
+                    f"forward DCT kernel: the planes must be non-empty uint8 "
+                    f"(H, W) on {dev}, got {p.dtype} {tuple(p.shape)} on "
+                    f"{p.device}")
+            if src.rgb and p.shape != planes[0].shape:
+                raise ValueError("forward DCT kernel: R, G and B planes of "
+                                 "different sizes")
+            out.append(p if p.stride(1) == 1 else p.contiguous())
+        return out
+
+    def scan(self, src: ScanPlanes, layout, stream: torch.Tensor,
+             dc_diff: torch.Tensor | None = None,
+             is_luma: torch.Tensor | None = None):
+        """One launch: the scan's pack inputs into `stream` ((n, 64) int16)
+        and, when given, `dc_diff` and `is_luma` ((n,) int32), n the scan's
+        block count, on the planes' device and current stream."""
+        planes = self._check(src, layout)
+        n = layout.mcus_h * layout.bpr
+        for t, dtype, shape in ((stream, torch.int16, (n, 64)),
+                                (dc_diff, torch.int32, (n,)),
+                                (is_luma, torch.int32, (n,))):
+            if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                                  or t.device != planes[0].device
+                                  or not t.is_contiguous()):
+                raise ValueError(f"forward DCT kernel: output {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}, expected "
+                                 f"{dtype} {shape} on {planes[0].device}")
+        if (dc_diff is None) != (is_luma is None):
+            raise ValueError("forward DCT kernel: dc_diff and is_luma go "
+                             "together")
+        if stream.data_ptr() % 16:
+            raise ValueError("forward DCT kernel: stream not 16-byte aligned")
+        q = np.stack([np.asarray(t, np.float32).reshape(64)
+                      for t in src.qtables])
+        p = _ScanParams.from_buffer_copy(_scan_params(
+            tuple(layout.sampling), layout.mcus_w, layout.mcus_h,
+            q.tobytes()))
+        for c, t in enumerate(planes):
+            p.src[c], p.stride[c] = t.data_ptr(), t.stride(0)
+            p.h[c], p.w[c] = t.shape
+        lib = DCT_LIB.build()
+        check_launch(lib, lib.uhdr_build_scan(
+            ctypes.byref(p), int(src.rgb), stream.data_ptr(),
+            None if dc_diff is None else dc_diff.data_ptr(),
+            None if is_luma is None else is_luma.data_ptr(),
+            torch.cuda.current_stream(planes[0].device).cuda_stream),
+            "uhdr_build_scan")
+        self.launches += 1
+
     def __call__(self, plane_u8: torch.Tensor,
                  qtable_natural) -> torch.Tensor:
-        dev = plane_u8.device
-        if dev.type != "cuda":
-            raise ValueError(f"forward DCT kernel needs a CUDA tensor, got "
-                             f"{dev}")
-        if (plane_u8.dim() != 2 or plane_u8.dtype != torch.uint8
-                or plane_u8.shape[0] % 8 or plane_u8.shape[1] % 8):
+        """The coefficients of one plane, H and W multiples of 8: a
+        one-component scan in raster order."""
+        if plane_u8.dim() != 2 or plane_u8.shape[0] % 8 \
+                or plane_u8.shape[1] % 8:
             raise ValueError(
-                f"forward DCT kernel: the plane must be uint8 (H, W) with H "
-                f"and W multiples of 8, got {plane_u8.dtype} "
-                f"{tuple(plane_u8.shape)}")
-        if not plane_u8.is_contiguous() or plane_u8.data_ptr() % 8:
-            plane_u8 = plane_u8.clone(memory_format=torch.contiguous_format)
+                f"forward DCT kernel: the plane must be (H, W) with H and W "
+                f"multiples of 8, got {tuple(plane_u8.shape)}")
         h, w = plane_u8.shape
-        q = np.ascontiguousarray(np.asarray(qtable_natural, np.float32)
-                                 .reshape(64))
-        out = torch.empty((h // 8, w // 8, 64), dtype=torch.int16,
-                          device=dev)
-        lib = DCT_LIB.build()
-        check_launch(lib, lib.uhdr_forward_dct(
-            plane_u8.data_ptr(), h, w, ctypes.byref(_dct_params(q.tobytes())),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-            "uhdr_forward_dct")
-        self.launches += 1
-        return out
+        layout = device_entropy.scan_layout(((1, 1),), w // 8, h // 8)
+        out = torch.empty((h // 8 * (w // 8), 64), dtype=torch.int16,
+                          device=plane_u8.device)
+        self.scan(ScanPlanes([plane_u8], [qtable_natural]), layout, out)
+        return out.reshape(h // 8, w // 8, 64)
 
 
 FORWARD_DCT_KERNEL = _ForwardDctKernel()
@@ -145,6 +326,31 @@ def forward_plane(plane_u8: torch.Tensor, qtable_natural) -> torch.Tensor:
     if plane_u8.device.type == "cuda":
         return FORWARD_DCT_KERNEL(plane_u8, qtable_natural)
     raise unsupported(f"no forward DCT for device {plane_u8.device}")
+
+
+def scan_inputs(scans):
+    """Dispatcher: [(ScanPlanes, ScanLayout), ...] -> the pack inputs of
+    all scans back to back (stream (n, 64) int16 in MCU stream order,
+    dc_diff (n,) int32 with the predictor reset every MCU row, is_luma (n,)
+    int32).  CPU planes: the plain version; CUDA planes: one kernel launch
+    a scan, each writing its part of the three preallocated outputs.  No
+    fallback between the two."""
+    dev = scans[0][0].planes[0].device
+    if dev.type == "cpu":
+        return scan_inputs_plain(scans)
+    if dev.type != "cuda":
+        raise unsupported(f"no scan build for device {dev}")
+    counts = [lay.mcus_h * lay.bpr for _, lay in scans]
+    total = sum(counts)
+    stream = torch.empty((total, 64), dtype=torch.int16, device=dev)
+    dc_diff = torch.empty(total, dtype=torch.int32, device=dev)
+    is_luma = torch.empty(total, dtype=torch.int32, device=dev)
+    off = 0
+    for (src, lay), n in zip(scans, counts):
+        FORWARD_DCT_KERNEL.scan(src, lay, stream[off:off + n],
+                                dc_diff[off:off + n], is_luma[off:off + n])
+        off += n
+    return stream, dc_diff, is_luma
 
 
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ progressive stream, ``_decode_progressive_coeffs``), driven by
 upload and the bit-exact IDCT on the device; ``decode_to_rgb`` adds
 ``_ycc_to_rgb`` (``planes_to_rgb``: the SRGB output's and the 3-channel gain
 map's RGB decode), and ``decode_to_rgba`` packs that as RGBA8888 for one
-download.
+download.  ``engine="host"`` on ``decode_to_planes`` / ``decode_to_rgba``
+is the JAX package's host engine: the native IDCT and, for RGBA, the
+native upsample and conversion, touching no device.
 """
 
 from __future__ import annotations
@@ -346,11 +348,23 @@ def decode_coefficients(data: bytes, info: JpegInfo):
     return coeffs, qts, fmt
 
 
-def decode_to_planes(data: bytes, info: JpegInfo | None,
-                     device: torch.device):
+_ENGINES = ("device", "host")
+
+
+def _check_engine(engine: str):
+    if engine not in _ENGINES:
+        raise unsupported(f"decode engine {engine!r}: 'device' or 'host'")
+
+
+def decode_to_planes(data: bytes, info: JpegInfo | None = None,
+                     engine: str = "device", device="cuda"):
     """Decode a baseline or progressive JPEG to its subsampled YCbCr
-    planes (DECODE_TO_YCBCR mode): (u8 tensors on `device`, fmt).  The
-    coefficients travel as raw int16 and the IDCT is ``inverse_plane``."""
+    planes (DECODE_TO_YCBCR mode): (planes, fmt).  engine "device": the
+    coefficients travel as raw int16 and the IDCT is ``inverse_plane`` on
+    `device`, u8 tensors there; "host": the native C++ IDCT
+    (``native.idct_plane``, within one code of libjpeg's islow), u8 numpy
+    planes, no tensor and no device."""
+    _check_engine(engine)
     if info is None:
         info = parse_jpeg(data)
     coeffs, qts, fmt = decode_coefficients(data, info)
@@ -361,8 +375,12 @@ def decode_to_planes(data: bytes, info: JpegInfo | None,
         # stored plane dims: ceil(w*h_i/hmax) x ceil(h*v_i/vmax)
         pw = -(-info.width * comp.h // hmax)
         ph = -(-info.height * comp.v // vmax)
-        planes.append(inverse_plane(to_device(c.astype(np.int16, copy=False),
-                                              device), q, ph, pw))
+        if engine == "host":
+            planes.append(native.idct_plane(c, q)[:ph, :pw])
+        else:
+            planes.append(inverse_plane(
+                to_device(c.astype(np.int16, copy=False),
+                          torch.device(device)), q, ph, pw))
     return planes, fmt
 
 
@@ -457,22 +475,36 @@ def planes_to_rgb(planes, fmt: ImgFmt, h: int, w: int) -> torch.Tensor:
     return _ycc_to_rgb(planes[0], planes[1], planes[2], _FMT_KEY[fmt], h, w)
 
 
-def decode_to_rgb(data: bytes, info: JpegInfo | None,
-                  device: torch.device) -> torch.Tensor:
+def decode_to_rgb(data: bytes, info: JpegInfo | None = None,
+                  device="cuda") -> torch.Tensor:
     """Decode a JPEG to its RGB image on `device` (DECODE_TO_RGB_CS mode):
     ``planes_to_rgb`` of ``decode_to_planes``."""
     if info is None:
         info = parse_jpeg(data)
-    planes, fmt = decode_to_planes(data, info, device)
+    planes, fmt = decode_to_planes(data, info, device=device)
     return planes_to_rgb(planes, fmt, info.height, info.width)
 
 
-def decode_to_rgba(data: bytes, info: JpegInfo | None,
-                   device: torch.device) -> np.ndarray:
+def decode_to_rgba(data: bytes, info: JpegInfo | None = None,
+                   engine: str = "device", device="cuda") -> np.ndarray:
     """Decode to packed RGBA8888 (H, W) uint32 in host memory, R in bits
-    7:0 and alpha 255 (libjpeg-turbo's JCS_EXT_RGBA): ``decode_to_rgb`` on
-    `device`, packed there, one download.  A YUV400 image packs its luma
-    into R, G and B."""
+    7:0 and alpha 255 (libjpeg-turbo's JCS_EXT_RGBA).  A YUV400 image packs
+    its luma into R, G and B.  engine "device" (the default here, where
+    the JAX package defaults to "host": the port runs on the card unless
+    asked otherwise): ``decode_to_rgb`` on `device`, packed there, one
+    download; "host": the native IDCT planes and the C++ fancy upsample
+    and conversion (``native.ycc_to_rgba32``), no device."""
+    _check_engine(engine)
+    if engine == "host":
+        if info is None:
+            info = parse_jpeg(data)
+        planes, fmt = decode_to_planes(data, info, engine="host")
+        h, w = info.height, info.width
+        if fmt == ImgFmt.YUV400:
+            y = planes[0].astype(np.uint32)
+            return y | (y << 8) | (y << 16) | np.uint32(0xFF000000)
+        return native.ycc_to_rgba32(planes[0][:h], planes[1], planes[2],
+                                    _FMT_KEY[fmt], h, w)
     rgb = decode_to_rgb(data, info, device).to(torch.int32)
     r, g, b = (rgb[0], rgb[0], rgb[0]) if rgb.shape[0] == 1 else rgb
     packed = r | (g << 8) | (b << 16) | _ALPHA_8888

@@ -26,7 +26,7 @@ from ..errors import invalid_param
 from ..ops.pixel import plane_tensor
 from ..types import ImgFmt, RawImage
 from . import native
-from .dct import forward_plane
+from .dct import forward_plane, pad_edge, rgb_to_ycbcr
 from .tables import (AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA, STD_CHROMA_QUANT,
                      STD_LUMA_QUANT, ZIGZAG_ORDER, scaled_quant_table)
 
@@ -40,26 +40,6 @@ _FMT_SAMPLING = {
     ImgFmt.YUV410: [(4, 2), (1, 1), (1, 1)],
     ImgFmt.RGB888: [(1, 1), (1, 1), (1, 1)],  # converted to YCbCr 444
 }
-
-
-def pad_edge(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """Edge-replicate pad of an (h, w) plane to (ph, pw), any dtype."""
-    h, w = p.shape
-    if h == ph and w == pw:
-        return p
-    rows = torch.arange(ph, device=p.device).clamp(max=h - 1)
-    cols = torch.arange(pw, device=p.device).clamp(max=w - 1)
-    return p.index_select(0, rows).index_select(1, cols)
-
-
-def rgb_to_ycbcr(rgb_u8_chw: torch.Tensor):
-    """libjpeg full-range Rec.601 RGB->YCbCr (jccolor.c) on (3, H, W)."""
-    r, g, b = (rgb_u8_chw[i].to(torch.float32) for i in range(3))
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
-    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
-    return [torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
-            for p in (y, cb, cr)]
 
 
 def _u16(v: int) -> bytes:

@@ -60,11 +60,17 @@ def _host_target(cxx: str) -> str:
     return hashlib.sha256(proc.stdout.encode()).hexdigest()
 
 
+def cxx() -> str:
+    """The C++ compiler of the host library (UHDR_TPU_CXX, default g++)."""
+    return os.environ.get("UHDR_TPU_CXX", "g++")
+
+
 def build_args() -> tuple:
     """The host library's (name, sources, command, key) for
     ``_buildlib.build_shared``: the key is the host's ``_host_target``."""
-    cxx = os.environ.get("UHDR_TPU_CXX", "g++")
-    return "jpeg_entropy", _SRCS, [cxx, *_FLAGS], _host_target(cxx)
+    compiler = cxx()
+    return ("jpeg_entropy", _SRCS, [compiler, *_FLAGS],
+            _host_target(compiler))
 
 
 def get_lib():
@@ -109,6 +115,17 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
+            lib.uhdr_ycbcr_to_rgb888.restype = None
+            lib.uhdr_ycbcr_to_rgb888.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p]
+            lib.uhdr_ycc_to_rgba32.restype = None
+            lib.uhdr_ycc_to_rgba32.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_void_p]
             lib.uhdr_apply_gainmap_host.restype = ctypes.c_int
             lib.uhdr_apply_gainmap_host.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
@@ -290,6 +307,39 @@ def ycbcr_to_rgb_planar(y: np.ndarray, cb: np.ndarray,
     lib.uhdr_ycbcr_to_rgb_planar(
         y.ctypes.data, w, cb.ctypes.data, cr.ctypes.data, w, w, h,
         out[0].ctypes.data, out[1].ctypes.data, out[2].ctypes.data)
+    return out
+
+
+_SAMPLING_CODE = {"444": 0, "420": 1, "422": 2, "440": 3, "411": 4,
+                  "410": 5}
+
+
+def ycc_to_rgba32(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                  fmt_key: str, h: int, w: int) -> np.ndarray:
+    """libjpeg's fancy chroma upsample and jdcolor fixed-point conversion
+    in one pass -> packed RGBA8888 (h, w) uint32, alpha 255 (host C++,
+    host_decode.cpp uhdr_ycc_to_rgba32; the bytes of
+    ``decoder.planes_to_rgb``)."""
+    lib = get_lib()
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    ch_, cw_ = cb.shape
+    out = np.empty((h, w), np.uint32)
+    lib.uhdr_ycc_to_rgba32(
+        y.ctypes.data, y.shape[1], cb.ctypes.data, cr.ctypes.data, cw_,
+        cw_, ch_, w, h, _SAMPLING_CODE[fmt_key], out.ctypes.data)
+    return out
+
+
+def ycbcr_to_rgb888(y: np.ndarray, cb: np.ndarray,
+                    cr: np.ndarray) -> np.ndarray:
+    """Full-range Rec.601 (h, w) u8 YCbCr planes -> (h, w, 3) u8 RGB
+    (host C++)."""
+    lib = get_lib()
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    h, w = y.shape
+    out = np.empty((h, w, 3), np.uint8)
+    lib.uhdr_ycbcr_to_rgb888(y.ctypes.data, w, cb.ctypes.data,
+                             cr.ctypes.data, w, w, h, out.ctypes.data)
     return out
 
 

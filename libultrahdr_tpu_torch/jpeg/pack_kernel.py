@@ -406,9 +406,11 @@ def compact_blocks_t(bb_t: torch.Tensor, blen: torch.Tensor,
     return out
 
 
-def tile_live_words(blen: torch.Tensor) -> torch.Tensor:
-    """(n_tiles,) int32 live word count of each 2048-block tile."""
-    wlen = (blen.to(torch.int64) + 31) >> 5
+def tile_live_words(blen: torch.Tensor, n_blocks: int | None = None
+                    ) -> torch.Tensor:
+    """(n_tiles,) int32 live word count of each 2048-block tile of the
+    first `n_blocks` block lengths (default: all of them)."""
+    wlen = (blen[:n_blocks].to(torch.int64) + 31) >> 5
     wlen = torch.nn.functional.pad(wlen, (0, -wlen.shape[0] % _TILE))
     return wlen.view(-1, _TILE).sum(dim=1).to(torch.int32)
 

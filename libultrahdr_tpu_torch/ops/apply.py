@@ -27,6 +27,8 @@ import torch
 from ..types import ColorGamut, ColorTransfer
 from . import apply_kernel, idw
 from .apply_kernel import apply_gain  # noqa: F401
+from .lut_parity import (GAIN_FACTOR_N, HLG_OETF_N,  # noqa: F401
+                         PQ_OETF_N, SRGB_INV_OETF_N)  # (JAX's names)
 
 
 def gainmap_weight(max_display_boost: float, cap_min: float,

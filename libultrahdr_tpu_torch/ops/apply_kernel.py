@@ -64,13 +64,14 @@ def _mat3(m, chans):
             + float(m[r, 2]) * chans[2] for r in range(3)]
 
 
-def apply_gain(rgb_sdr, gain: torch.Tensor, meta_rows, weight: float):
+def apply_gain(rgb_sdr, gain: torch.Tensor, metadata_arrays,
+               weight: float):
     """applyGainLUT (gainmapmath.cpp:849-855 + GainLUT, gainmapmath.h:452-495),
     the JAX package's ``ops/apply.apply_gain``: three (H, W) linear SDR
     channels and the gain (C, H, W) in [0, 1] (C = 1 serves all three
     channels) -> three linear HDR channels referenced to SDR white."""
     dev = gain.device
-    meta = torch.from_numpy(np.asarray(meta_rows, np.float32)).to(dev)
+    meta = torch.from_numpy(np.asarray(metadata_arrays, np.float32)).to(dev)
     w_scalar = torch.tensor(np.float32(weight), device=dev)
     rgb_hdr = []
     for c in range(3):

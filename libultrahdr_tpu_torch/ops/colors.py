@@ -51,6 +51,18 @@ def luminance(rgb: torch.Tensor, coeffs) -> torch.Tensor:
     return float(c[0]) * rgb[0] + float(c[1]) * rgb[1] + float(c[2]) * rgb[2]
 
 
+def srgb_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return luminance(rgb, K_SRGB)
+
+
+def p3_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return luminance(rgb, K_P3)
+
+
+def bt2100_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return luminance(rgb, K_BT2100)
+
+
 def luminance_coeffs_for_gamut(cg) -> np.ndarray:
     """getLuminanceFn (gainmapmath.cpp:1149-1162)."""
     return {ColorGamut.BT709: K_SRGB,
@@ -100,9 +112,12 @@ def rgb_to_yuv(rgb: torch.Tensor, matrix) -> torch.Tensor:
     return apply_3x3(matrix, rgb)
 
 
-def yuv_to_rgb(yuv: torch.Tensor, matrix) -> torch.Tensor:
-    """YUV->RGB, clamped to [0,1] like the reference (clampPixelFloat)."""
-    return torch.clamp(apply_3x3(matrix, yuv), 0.0, 1.0)
+def yuv_to_rgb(yuv: torch.Tensor, matrix, clamp: bool = True
+               ) -> torch.Tensor:
+    """YUV->RGB, clamped to [0,1] like the reference (clampPixelFloat)
+    unless `clamp` is False."""
+    rgb = apply_3x3(matrix, yuv)
+    return torch.clamp(rgb, 0.0, 1.0) if clamp else rgb
 
 
 def rgb2yuv_matrix_for_gamut(cg) -> np.ndarray:
@@ -157,6 +172,21 @@ def hlg_inv_oetf(e_gamma: torch.Tensor) -> torch.Tensor:
 _OOTF_GAMMA = 1.2  # BT.2100-2 Table 5 Note 5f for a 1000-nit display
 
 
+def hlg_ootf(rgb: torch.Tensor, lum_coeffs) -> torch.Tensor:
+    """HLG reference OOTF (gainmapmath.cpp:288-291).  The codec never runs
+    it (getOotfFn binds ``hlg_ootf_approx``); kept, as in the JAX package,
+    for the reference's exported math surface."""
+    y = luminance(rgb, lum_coeffs)
+    return rgb * torch.pow(torch.clamp(y, min=1e-37), _OOTF_GAMMA - 1.0)
+
+
+def hlg_inverse_ootf(rgb: torch.Tensor, lum_coeffs) -> torch.Tensor:
+    """HLG inverse OOTF (gainmapmath.cpp:301-305)."""
+    y = luminance(rgb, lum_coeffs)
+    return rgb * torch.pow(torch.clamp(y, min=1e-37),
+                           (1.0 / _OOTF_GAMMA) - 1.0)
+
+
 def hlg_ootf_approx(rgb: torch.Tensor) -> torch.Tensor:
     """hlgOotfApprox (gainmapmath.cpp:293-295): per-channel pow(1.2), what
     getOotfFn(UHDR_CT_HLG) returns (gainmapmath.cpp:1191-1192)."""
@@ -199,9 +229,12 @@ def inv_oetf(e_gamma: torch.Tensor, ct) -> torch.Tensor:
     raise ValueError(f"no inverse oetf for {ct}")
 
 
-def ootf(rgb: torch.Tensor, ct) -> torch.Tensor:
+def ootf(rgb: torch.Tensor, ct, lum_coeffs=None) -> torch.Tensor:
     """getOotfFn (gainmapmath.cpp:1187-1201): HLG applies the per-channel
-    OOTF approximation, the others are identity."""
+    OOTF approximation, the others are identity.  `lum_coeffs` is accepted
+    for the JAX package's signature and not read, like hlgOotfApprox's
+    unused luminance argument."""
+    del lum_coeffs
     if ColorTransfer(ct) == ColorTransfer.HLG:
         return hlg_ootf_approx(rgb)
     return rgb

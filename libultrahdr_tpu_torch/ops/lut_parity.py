@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+# the LUT grids are always applied (the JAX package's switch, always on)
+PARITY = True
+
 # LUT sizes (gainmapmath.h:274-342, 449-450)
 SRGB_INV_OETF_N = 1 << 10
 HLG_OETF_N = 1 << 16

@@ -9,7 +9,8 @@
 - ``read_jpegr``: split a JPEG_R file through its MPF index and read the
   gain map's ISO 21496-1 metadata;
 - ``decode_scan_coeffs``: decode one JPEG's scan back to its quantised
-  coefficients with the host native decoder;
+  coefficients with the host native decoder; ``scan_coeffs``: the
+  coefficient planes a scan of the fused encodes is built into;
 - ``pack_scans_v1`` / ``pack_scans_v2``: the block-pack and tile-pack
   routes (slots -> kernel -> compaction), which no request runs;
 - ``apply_tables_plain`` / ``apply_gainmap_tables``: the apply kernel's
@@ -42,7 +43,7 @@ import torch
 from ._buildlib import PKG_DIR
 from .container import iso21496, mpf
 from .container.jpegr_container import ISO_NS
-from .jpeg import native, pack_kernel
+from .jpeg import dct, native, pack_kernel
 from .jpeg.device_entropy import ScanLayout, _default_budget
 from .jpeg.tables import AC_CHROMA, AC_LUMA, DC_CHROMA, DC_LUMA
 from .ops import apply_kernel, colors, pixel
@@ -257,10 +258,28 @@ def decode_scan_coeffs(jpeg: bytes, layout: ScanLayout) -> list[np.ndarray]:
     return coeffs
 
 
+def scan_coeffs(src, layout: ScanLayout) -> list[torch.Tensor]:
+    """A scan's (bh, bw, 64) int16 coefficient planes on its device: for a
+    ``dct.ScanPlanes`` the stream that ``dct.scan_inputs`` builds (on the
+    card, the kernel), taken back out of MCU order; coefficient planes as
+    they are."""
+    if not isinstance(src, dct.ScanPlanes):
+        return list(src)
+    mh, mw = layout.mcus_h, layout.mcus_w
+    stream = dct.scan_inputs([(src, layout)])[0].reshape(mh, mw, -1, 64)
+    out, off = [], 0
+    for hs, vs in layout.sampling:
+        part = stream[:, :, off:off + hs * vs].reshape(mh, mw, vs, hs, 64)
+        out.append(part.permute(0, 2, 1, 3, 4).reshape(mh * vs, mw * hs, 64))
+        off += hs * vs
+    return out
+
+
 def scans_slots(scans):
-    """Slots of several scans [(coeff_planes, layout), ...] for the block
-    pack and the tile pack, concatenated in order."""
-    pays, lens = zip(*(pack_kernel.slots_for_kernel(c, lay)
+    """Slots of several scans [(dct.ScanPlanes or coefficient planes,
+    layout), ...] for the block pack and the tile pack, concatenated in
+    order."""
+    pays, lens = zip(*(pack_kernel.slots_for_kernel(scan_coeffs(c, lay), lay)
                        for c, lay in scans))
     return torch.cat(pays), torch.cat(lens)
 

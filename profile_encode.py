@@ -15,9 +15,10 @@ map).  For each it measures:
    warm-ups;
 2. stages: the steps of ``fused.encode_api1_fused`` run one by one with a
    synchronize and a host clock at each boundary (upload of the five
-   planes, unpack and the base's YUV re-encoding, the base's MCU pad and
-   DCT, the gain map or its float pass, the read of the bounds, the map's
-   quantisation and DCT, stream glue, pack kernel, download, host join,
+   planes, unpack and the base's YUV re-encoding, the gain map or its float
+   pass, the read of the bounds, the map's quantisation, the scan build:
+   both scans' MCU pad, colour conversion, DCT and stream glue, one scan
+   kernel launch each on the card; pack kernel, download, host join,
    headers and container), median of REPS after 2 warm-ups; the staged
    request's bytes must equal the request's;
 3. busy share: the union of the device's kernel and copy intervals in a
@@ -45,7 +46,7 @@ sys.path.insert(0, str(HERE))
 
 import libultrahdr_tpu_torch as port  # noqa: E402
 from libultrahdr_tpu_torch import fused, testing  # noqa: E402
-from libultrahdr_tpu_torch.jpeg import device_entropy  # noqa: E402
+from libultrahdr_tpu_torch.jpeg import dct  # noqa: E402
 from libultrahdr_tpu_torch.jpeg import pack_kernel as pk  # noqa: E402
 from libultrahdr_tpu_torch.ops import gainmap as gainmap_ops  # noqa: E402
 from libultrahdr_tpu_torch.ops import pixel  # noqa: E402
@@ -107,7 +108,6 @@ def staged(hdr, sdr, scale: int, multichannel: bool, preset):
         (sy, su, sv), Fmt.YUV420, CG(sdr.cg), CG.DISPLAY_P3, H, W)
     clock.lap("unpack + YUV re-encoding")
     base = fused._base_scan(list(planes), fused._SAMPLING_420, 95)
-    clock.lap("base MCU pad + DCT")
     use_base_cg = fused._use_base_cg(CG(sdr.cg), CG(hdr.cg), jr.write_xmp)
     common = dict(sdr_fmt=Fmt.YUV420, hdr_fmt=Fmt.P010, sdr_cg=CG(sdr.cg),
                   hdr_cg=CG(hdr.cg), ct=CT(hdr.ct), scale=scale,
@@ -129,10 +129,8 @@ def staged(hdr, sdr, scale: int, multichannel: bool, preset):
         clock.lap("map quantisation")
         md = fused._twopass_metadata(jr, CT(hdr.ct), lo, hi, use_base_cg)
     scans = [base, fused._gainmap_scan(gm, multichannel, 95)]
-    clock.lap("map MCU pad + DCT")
-    ins = [torch.cat(p) for p in zip(*(
-        device_entropy.stream_inputs(c, lay) for c, lay in scans))]
-    clock.lap("stream glue")
+    ins = dct.scan_inputs(scans)
+    clock.lap("scan build")
     words, blen = pk.pack_scan(*ins)
     clock.lap("pack kernel (wrapper)")
     words_h = words.cpu().numpy().view(np.uint32)

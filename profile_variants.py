@@ -4,8 +4,9 @@
                                 [--baseline-source FILE.cu]
 
 Each variant is a checked-in source (``csrc/apply_kernel.cu``,
-``csrc/pack_kernel.cu`` or ``csrc/block_pack_kernel.cu``) with a few of its
-lines replaced, built like the shipped library into ``_build/variants/``:
+``csrc/pack_kernel.cu``, ``csrc/block_pack_kernel.cu`` or
+``csrc/dct_kernel.cu``) with a few of its lines replaced, built like the
+shipped library into ``_build/variants/``:
 
 - apply: the 65536-entry code table read from L2 through ``__ldg``, where
   the shipped kernel copies it into shared memory;
@@ -19,7 +20,13 @@ lines replaced, built like the shipped library into ``_build/variants/``:
   256 blocks (``kSub`` 128, clusters of 16, as shipped); a block's slot
   walk with 6 of its 18 steps unrolled (fully unrolled as shipped);
   ``--baseline-source`` adds another ``block_pack_kernel.cu`` as a whole,
-  for instance a parent commit's from a ``git archive``.
+  for instance a parent commit's from a ``git archive``;
+- scan: 2 or 3 CTAs an SM (4 as shipped, the RGB source's kernel then
+  spilling 24 bytes), and, timed only (their output differs), no loads
+  (each sample a function of its position) and no arithmetic (each
+  block's columns stored as its coefficients: what the loads, the
+  shared-memory transpose, the stores and the DC pass cost without the
+  1,920 products and sums and the 64 divisions).
 
 Inputs are a 4K request's own: ``testing.photo_p010(3840, 2160)`` encoded
 with ``UhdrEncoder(device="cuda")`` in the library's default configuration
@@ -27,13 +34,15 @@ with ``UhdrEncoder(device="cuda")`` in the library's default configuration
 stream, the apply the decode's stage outputs (SDR YUV and the upsampled
 gain), to HLG, PQ and LINEAR, and the slot packs the slots of the same
 scans (``testing.scans_slots``) in both configurations (the benchmark's:
-map scale 4, 1-channel map), the tile pack at its default budget.  Every
-variant's output must equal the plain version's (torch.equal; the tile
-pack on its block lengths and live prefixes), or the script fails.  Times
+map scale 4, 1-channel map), the tile pack at its default budget, and the
+scan kernel the scans of both configurations.  Every variant's output
+but a timing-only one's must equal the plain version's (torch.equal; the
+tile pack on its block lengths and live prefixes), or the script fails.  Times
 are CUDA events in turns (shipped, variants..., variants reversed,
 shipped), 20 launches a turn: the apply wrapper's launch, and the pack
 kernels alone (``testing.pack_kernel_ms``, ``slot_pack_kernel_ms``)
-beside their wrappers.  Prints a line per time with the card's name and
+beside their wrappers, the scan kernel's two launches alone
+(``testing.launch_ms``) beside its dispatcher ``dct.scan_inputs``.  Prints a line per time with the card's name and
 power limit (nvidia-smi) and writes DIR/kernel_variants.json.  Imports
 nothing of JAX.
 """
@@ -50,7 +59,7 @@ import torch
 
 import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import _buildlib, fused, jpegr, testing
-from libultrahdr_tpu_torch.jpeg import device_entropy
+from libultrahdr_tpu_torch.jpeg import dct, device_entropy
 from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
 from libultrahdr_tpu_torch.ops import apply as apply_ops
 from libultrahdr_tpu_torch.ops import apply_kernel as ak
@@ -58,6 +67,8 @@ from libultrahdr_tpu_torch.ops import idw
 
 W, H = 3840, 2160
 REPS = 20
+# a variant whose output differs from the plain version's, timed only
+TIMING_ONLY = "timing only: "
 # family -> (module, its library attribute, {variant: [(shipped text, its
 # text)]})
 VARIANTS = {
@@ -93,6 +104,32 @@ VARIANTS = {
              "    const int4 p = p4[i];",
              "#pragma unroll 6\n  for (int i = 0; i < kSlots / 4; ++i) {\n"
              "    const int4 p = p4[i];")]}),
+    "scan": (dct, "DCT_LIB", {
+        "2 CTAs an SM": [("__launch_bounds__(kThreads, 4)",
+                          "__launch_bounds__(kThreads, 2)")],
+        "3 CTAs an SM, the RGB source's kernel": [
+            ("__launch_bounds__(kThreads, 4)",
+             "__launch_bounds__(kThreads, kRgb ? 3 : 4)")],
+        TIMING_ONLY + "no loads": [
+            ("x[k] = level_shifted(__ldg(\n"
+             "                  cp.src + min(y0 + k, cp.h - 1) * cp.stride + "
+             "col));",
+             "x[k] = level_shifted(static_cast<uint32_t>(lane * 8 + k + b) "
+             "& 255u);"),
+            ("rgb[ch][k] = byte_value(__ldg(comps[ch].src + at));",
+             "rgb[ch][k] = byte_value(static_cast<uint32_t>(lane * 8 + k + "
+             "ch) & 255u);")],
+        TIMING_ONLY + "no arithmetic": [
+            ("float acc = __fmul_rn(p.d[u * 8], x[0]);\n#pragma unroll\n"
+             "            for (int k = 1; k < 8; ++k)\n"
+             "              acc = __fadd_rn(acc, __fmul_rn(p.d[u * 8 + k], "
+             "x[k]));", "float acc = x[u];"),
+            ("float acc = __fmul_rn(t[0], p.d[v2 * 8]);\n#pragma unroll\n"
+             "            for (int k = 1; k < 8; ++k)\n"
+             "              acc = __fadd_rn(acc, __fmul_rn(t[k], "
+             "p.d[v2 * 8 + k]));\n"
+             "            const int qv = round_to_int(__fdiv_rn(acc, "
+             "q[v2]));", "const int qv = round_to_int(t[v2]);")]}),
 }
 
 
@@ -148,8 +185,7 @@ def inputs(dev: torch.device):
     enc.set_quality(95, port.ImgLabel.BASE)
     data = enc.encode()
     scans = p010_scans(img, dev, 1, True)
-    pack_ins = [torch.cat(p) for p in zip(*(
-        device_entropy.stream_inputs(c, lay) for c, lay in scans))]
+    pack_ins = dct.scan_inputs(scans)
     slot_ins = {}
     for cfg, scs in (("default", scans),
                      ("benchmark", p010_scans(img, dev, 4, False))):
@@ -211,6 +247,13 @@ def main() -> int:
     if "apply" in args.only:
         want["apply"] = {k: ak.apply_gainmap_plain(*a, **kw)
                          for k, (a, kw) in apply_ins.items()}
+    scan_ins = {cfg: p010_scans(testing.photo_p010(W, H), dev, *c)
+                for cfg, c in (("default", (1, True)),
+                               ("benchmark", (4, False)))
+                if "scan" in args.only}
+    if "scan" in args.only:
+        want["scan"] = {cfg: dct.scan_inputs_plain(scans)
+                        for cfg, scans in scan_ins.items()}
     if "slot packs" in args.only:
         want["slot packs"] = {
             cfg: (pk.pack_blocks_plain(pays, lens),
@@ -230,7 +273,7 @@ def main() -> int:
         for lib in libs[family].values():
             lib.build()
 
-    def measure(family, lib) -> dict:
+    def measure(family, name, lib) -> dict:
         mod, attr, _ = VARIANTS[family]
         setattr(mod, attr, lib)
         if family == "pack":
@@ -241,6 +284,25 @@ def main() -> int:
             return {"kernel": testing.pack_kernel_ms(pack_ins),
                     "wrapper": events_ms(lambda: pk.pack_scan(*pack_ins))}
         out = {}
+        if family == "scan":
+            for cfg, scans in scan_ins.items():
+                got = dct.scan_inputs(scans)
+                if not name.startswith(TIMING_ONLY) and not all(
+                        torch.equal(a, b)
+                        for a, b in zip(got, want["scan"][cfg])):
+                    raise AssertionError(f"scan {lib.name} {cfg} != plain")
+
+                def launches(scans=scans, got=got):
+                    off = 0
+                    for src, lay in scans:
+                        n = lay.mcus_h * lay.bpr
+                        dct.FORWARD_DCT_KERNEL.scan(src, lay, *(
+                            t[off:off + n] for t in got))
+                        off += n
+                out[cfg] = {"kernel": testing.launch_ms(launches),
+                            "wrapper": events_ms(
+                                lambda scans=scans: dct.scan_inputs(scans))}
+            return out
         if family == "apply":
             for k, (a, kw) in apply_ins.items():
                 if not torch.equal(ak.APPLY_KERNEL(*a, **kw),
@@ -271,7 +333,7 @@ def main() -> int:
         order = list(named) + list(named)[::-1]
         runs = {name: [] for name in named}
         for name in order:
-            runs[name].append(measure(family, named[name]))
+            runs[name].append(measure(family, name, named[name]))
         mod, attr, _ = VARIANTS[family]
         setattr(mod, attr, named["shipped"])
         for name, rs in runs.items():

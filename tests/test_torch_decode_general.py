@@ -148,7 +148,7 @@ def test_progressive_coefficients_and_planes_bit_exact(kind):
     for a, b in zip(coeffs, want):
         assert a.dtype == np.int16 and a.flags.c_contiguous
         np.testing.assert_array_equal(a, b)
-    planes, pfmt = port_decoder.decode_to_planes(data, None, CPU)
+    planes, pfmt = port_decoder.decode_to_planes(data, None, device=CPU)
     jplanes, jfmt = jax_decoder.decode_to_planes(data)
     assert int(pfmt) == int(jfmt) == int(fmt)
     for a, b in zip(planes, jplanes):
@@ -163,7 +163,8 @@ def test_progressive_scan_needs_only_the_tables_it_uses():
     codes = []
     for parse, decode in (
             (port_decoder.parse_jpeg,
-             lambda info: port_decoder.decode_to_planes(data, info, CPU)),
+             lambda info: port_decoder.decode_to_planes(data, info,
+                                                        device=CPU)),
             (jax_decoder.parse_jpeg,
              lambda info: jax_decoder.decode_to_planes(data, info))):
         info = parse(data)
@@ -217,7 +218,7 @@ def _rebased(sampling) -> bytes:
     its base re-encoded by the port's JpegEncoder at `sampling` (an ImgFmt
     of YUV planes), chroma taken from the base's full-resolution chroma."""
     primary, gm, md = _split(_jax_file(4, False))
-    (y, u, v), _ = port_decoder.decode_to_planes(primary, None, CPU)
+    (y, u, v), _ = port_decoder.decode_to_planes(primary, None, device=CPU)
     full = [np.repeat(np.repeat(c.numpy(), 2, 0), 2, 1)[:H, :W]
             for c in (u, v)]
     sub = {Fmt.YUV444: (1, 1), Fmt.YUV422: (2, 1), Fmt.YUV440: (1, 2),

@@ -17,7 +17,8 @@ the two engines agree bit for bit:
   (tests/test_host_decode.py): >= 55 dB a channel, its IDCT not being
   libjpeg's islow;
 - ``UHDR_TPU_DECODE_ENGINE=host`` routes ``UhdrDecoder`` to it, with no
-  retry on another engine.
+  retry on another engine, and an SRGB decode to the host engine of
+  ``JpegR.decode``, whose output equals the JAX decoder's.
 """
 
 import functools
@@ -129,6 +130,20 @@ def test_decode_host_against_the_device_decode(scale, multichannel, out):
         assert _psnr10(host, dev, s) >= 55.0
 
 
+@pytest.mark.parametrize("gamma,multichannel", [(1.5, False), (2.2, True)])
+def test_decode_host_scale1_gamma(gamma, multichannel):
+    """tests/test_host_decode.py's case on the port: at map scale 1 the
+    host engine composes gamma, quantisation and gain into one 256-entry
+    table; with a gamma other than 1 it holds the same gate against the
+    port's device decode."""
+    data = _file(1, multichannel, gamma)
+    jr = port.JpegR(device="cpu")
+    host = jr.decode_host(data, CT.HLG)[0].planes[0]
+    dev = jr.decode(data, CT.HLG)[0].planes[0]
+    for s in (0, 10, 20):
+        assert _psnr10(host, dev, s) >= 55.0
+
+
 def _replaced(data: bytes, base: bytes | None = None,
               gm: bytes | None = None) -> bytes:
     """`data` with its base or its gain map replaced, through API-4."""
@@ -146,7 +161,7 @@ def _replaced(data: bytes, base: bytes | None = None,
 def _with_base(data: bytes, fmt) -> bytes:
     """`data` with its base re-encoded at another sampling."""
     primary, _ = port.JpegR.extract_primary_and_gainmap(data)
-    (y, u, v), _ = port_decoder.decode_to_planes(primary, None, "cpu")
+    (y, u, v), _ = port_decoder.decode_to_planes(primary, None, device="cpu")
     full = [np.repeat(np.repeat(c.numpy(), 2, 0), 2, 1) for c in (u, v)]
     hs, vs = {Fmt.YUV411: (4, 1), Fmt.YUV400: (0, 0)}[fmt]
     planes = [y.numpy()] + ([np.ascontiguousarray(c[::vs, ::hs])
@@ -251,11 +266,17 @@ def test_host_engine_through_the_decoder(monkeypatch):
     with pytest.raises(jax_errors.UhdrError) as e:
         jdec.decode()
     assert int(e.value.code) == UNSUPPORTED
-    # SRGB has no host engine: JpegR.decode serves it
+    # SRGB: JpegR.decode on the host engine, the JAX decoder's bytes
     srgb = _decoder(data, CT.SRGB, Fmt.RGBA8888).decode()
     np.testing.assert_array_equal(
-        srgb.planes[0],
-        port.JpegR(device="cpu").decode(data, CT.SRGB)[0].planes[0])
+        srgb.planes[0], port.JpegR(device="cpu").decode(
+            data, CT.SRGB, engine="host")[0].planes[0])
+    jdec = jax_api.UhdrDecoder()
+    jdec.set_image(data)
+    jdec.set_out_color_transfer(jax_types.ColorTransfer.SRGB)
+    jdec.set_out_img_format(jax_types.ImgFmt.RGBA8888)
+    np.testing.assert_array_equal(srgb.planes[0],
+                                  np.asarray(jdec.decode().planes[0]))
 
 
 def test_native_build_is_keyed_by_the_host():

@@ -129,9 +129,9 @@ def test_port_encode_checks(cfg):
         rng=port.ColorRange.FULL, scale=pjr.map_dimension_scale_factor,
         multichannel=pjr.use_multi_channel_gainmap, gamma=1.0, quality=95,
         map_quality=95, use_base_cg=False)
-    for jpeg, (coeffs, layout) in zip((primary, gm_jpeg), scans):
+    for jpeg, (src, layout) in zip((primary, gm_jpeg), scans):
         for got, want in zip(testing.decode_scan_coeffs(jpeg, layout),
-                             coeffs):
+                             testing.scan_coeffs(src, layout)):
             np.testing.assert_array_equal(got, want.numpy())
 
 
@@ -211,7 +211,7 @@ def test_other_hdr_formats_raise_unsupported():
     assert jax_decoder.parse_jpeg(primary).progressive
     want, wfmt = jax_decoder.decode_to_planes(marked)
     got, gfmt = port_decoder.decode_to_planes(marked, None,
-                                              torch.device("cpu"))
+                                              device=torch.device("cpu"))
     assert int(gfmt) == int(wfmt)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -262,7 +262,7 @@ def test_api2_api3_match_jax(api):
     hdr, _, sdr, _, comp = images()
     if api == "api3":
         want, wfmt = jax_decoder.decode_to_planes(comp)
-        got, gfmt = port_decoder.decode_to_planes(comp, None, CPU)
+        got, gfmt = port_decoder.decode_to_planes(comp, None, device=CPU)
         assert int(gfmt) == int(wfmt)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -474,7 +474,7 @@ def test_progressive_compressed_sdr_raises_unsupported():
     progressive = buf.getvalue()
     assert port_decoder.parse_jpeg(progressive).progressive
     want, wfmt = jax_decoder.decode_to_planes(progressive)
-    got, gfmt = port_decoder.decode_to_planes(progressive, None, CPU)
+    got, gfmt = port_decoder.decode_to_planes(progressive, None, device=CPU)
     assert int(gfmt) == int(wfmt) == int(Fmt.YUV420)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -249,11 +249,11 @@ def test_port_encode_checks(fmt_name):
     else:
         scans = port_fused._api0_rgb_block_buffers(planes[0], fmt=img.fmt,
                                                    **kw)
-    for jpeg, (coeffs, layout), want_layout in zip((primary, gm_jpeg), scans,
-                                                   layouts):
+    for jpeg, (src, layout), want_layout in zip((primary, gm_jpeg), scans,
+                                                layouts):
         assert layout == want_layout
         for got, want in zip(testing.decode_scan_coeffs(jpeg, layout),
-                             coeffs):
+                             testing.scan_coeffs(src, layout)):
             np.testing.assert_array_equal(got, want.numpy())
 
 

@@ -22,11 +22,12 @@ the general path's encoder), and every scan and plane it built is then
 held against the plain composition on its own inputs:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the four CUDA kernel libraries (csrc/pack_kernel.cu,
-   csrc/block_pack_kernel.cu, csrc/apply_kernel.cu and the scan kernel
-   csrc/dct_kernel.cu, nvcc, sm_90a) and the host C++ (csrc/host/) from the
-   checkout's sources, all five compilers started together; print each
-   kernel's ptxas line (registers, static shared memory, spills);
+2. build the five CUDA kernel libraries (csrc/pack_kernel.cu,
+   csrc/block_pack_kernel.cu, csrc/apply_kernel.cu, the scan kernel
+   csrc/dct_kernel.cu and the wire kernels csrc/wire_kernel.cu, nvcc,
+   sm_90a) and the host C++ (csrc/host/) from the checkout's sources, all
+   six compilers started together; print each kernel's ptxas line
+   (registers, static shared memory, spills);
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
    planes with the pack's edge cases (block counts that are and are not a
@@ -159,6 +160,26 @@ held against the plain composition on its own inputs:
    ``decode_to_device_batch(mesh=make_mesh(4, 1, ...))`` of phase 7's
    files, eight apply launches, bit-identical to the per-image route.
    Prints each step's ms beside the single-device route's;
+18. the wire codecs (``wire.py``), which every phase above leaves off (no
+   knob set: 0 launches of the two wire kernels on every path): 18a the
+   un-slicing kernel and the download-pack kernel against their plain
+   versions (torch.equal) on edge cases (fixed rungs of 2-8 bits, vw widths
+   0-15, sample counts that are no multiple of 32, a payload shorter than
+   its offsets; both download formats at 3, 4, 6 and 8 bits, escapes at the
+   first and last sample, counts above cap); 18b 4K encodes with
+   ``UHDR_TPU_WIRE`` = auto, vw, 2d5, 1d7 (P010), auto (RGBA1010102,
+   RGBAF16) and ``UHDR_TPU_WIRE_API1`` = auto, h4s3 (API-1, both presets),
+   both configurations, each file byte-identical to the raw route's of
+   phases 4 and 4b and naming the wire it rode (``wire.RODE``), and the
+   pipelined encode over phase 7's images, each on its own wire
+   (``UHDR_TPU_WIRE`` = auto, vw), equal to phase 7's files; 18c the
+   4K decodes of both files to HLG and LINEAR with ``UHDR_TPU_WIRE`` = auto
+   (the coefficient wire) and ``UHDR_TPU_WIRE_DOWN`` = auto, 4, 8, each
+   equal to phase 5's raw output, and phase 8's batch decodes over the
+   coefficient wire equal to phase 8's per-image outputs; each path's wire
+   kernel launches as its wires imply; 18d times, each route beside raw in
+   turns (host clock medians: request, host pack, upload; the kernels by
+   CUDA events beside their bounds; the download against ``.cpu()``);
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -167,12 +188,14 @@ held against the plain composition on its own inputs:
    plain ms, the bound), then the device line.
 
 It imports nothing of JAX and nothing of the JAX package; there is no CPU
-path.
+path.  No wire knob (UHDR_TPU_WIRE, UHDR_TPU_WIRE_API1, UHDR_TPU_WIRE_DOWN)
+may be set in its environment: phase 18 sets them itself.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import os
@@ -344,13 +367,16 @@ def main() -> int:
     from libultrahdr_tpu_torch.ops import apply as apply_ops
     from libultrahdr_tpu_torch.ops import apply_kernel as ak
     from libultrahdr_tpu_torch.ops import colors, gainmap, idw, pixel, tonemap
+    from libultrahdr_tpu_torch.ops import wire_kernel as wk
     dev = torch.device("cuda", 0)
     CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
 
     counted = {"pack_scan": pk.PACK_KERNEL, "pack_blocks": pk.PACK_BLOCKS_KERNEL,
                "pack_tiles": pk.PACK_TILES_KERNEL,
                "apply_gainmap": ak.APPLY_KERNEL,
-               "forward_dct": dct.FORWARD_DCT_KERNEL}
+               "forward_dct": dct.FORWARD_DCT_KERNEL,
+               "wire_unslice": wk.UNSLICE_KERNEL,
+               "down_pack": wk.DOWN_PACK_KERNEL}
     # every scan-kernel launch read on a path, for the records
     dct_launches = [0]
     # every scan the paths build (dct.scan_inputs, one kernel launch a
@@ -419,12 +445,13 @@ def main() -> int:
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
-            ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB))
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+            ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB),
+            ("wire", wk.WIRE_LIB))
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(native.get_lib)] + [
                 pool.submit(lib.build) for _, lib in libs]:
             f.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the four "
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the five "
         "kernel libraries (nvcc sm_90a) and the host C++, in parallel")
     for kname, lib in libs:
         log(f"phase 2 {kname} kernel: {lib.build_seconds:.1f} s | "
@@ -2648,6 +2675,485 @@ def main() -> int:
                 f"against {plain_ms:.1f} ms without the mesh; every output "
                 f"bit-identical to the per-image route | {card}")
 
+    # ---- phase 18: the wire codecs -----------------------------------------
+    # every route the JAX package sends over a wire takes the same wire when
+    # its knob asks for it (wire.py); unset, each route is raw, and every
+    # path above read 0 launches of the two wire kernels.  18a: both wire
+    # kernels against their plain versions on edge cases; 18b: 4K encodes
+    # over each knob value, byte-identical to the raw files of phases 4 and
+    # 4b; 18c: 4K decodes over the coefficient and download wires equal to
+    # the raw decodes of phase 5, and the batch decode of phase 7's files
+    # equal to phase 8's per-image outputs; 18d: times, each wire beside raw
+    from libultrahdr_tpu_torch import wire
+    from libultrahdr_tpu_torch.ops import wire_kernel as wk
+    before_wires = {
+        "pack_scan": p010_launches["pack_scan"] + rgb_launches["pack_scan"]
+        + api1_launches["pack_scan"] + compressed_launches["pack_scan"]
+        + pipe_launches + general_input_launches["pack_scan"]
+        + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
+        + sharded_pack_launches, "forward_dct": dct_launches[0]}
+    log(f"phase 18 launches of phases 3-17, no wire knob set: {before_wires}"
+        f" (the apply kernel's below, in the records)")
+    wire_knobs = ("UHDR_TPU_WIRE", "UHDR_TPU_WIRE_API1", "UHDR_TPU_WIRE_DOWN")
+    if any(os.environ.get(k) is not None for k in wire_knobs):
+        raise AssertionError(f"a wire knob is set in the environment: "
+                             f"{[k for k in wire_knobs if k in os.environ]}")
+
+    @contextlib.contextmanager
+    def knobs(**env):
+        """The wire knobs set to `env` (the others unset) for the block."""
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            for k in wire_knobs:
+                os.environ.pop(k, None)
+
+    # 18a: the kernels against their plain versions
+    rs = np.random.RandomState(18)
+
+    def rand_words(n):
+        return torch.from_numpy(rs.randint(-2 ** 31, 2 ** 31, n,
+                                           dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    n_cases = 0
+    for bits in range(2, 9):
+        for n in (1, 31, 32, 32 * 1000 + 7):
+            pay = rand_words(-(-n // 32) * bits)
+            tensors_equal((wk.unslice(pay, n, bits=bits),),
+                          (wk.unslice_plain(pay, n, bits=bits),),
+                          f"unslice, fixed {bits} bits, {n} samples")
+            n_cases += 1
+    vw_cases = [rs.randint(0, 16, 37), rs.randint(0, 16, 4099),
+                np.zeros(64, np.int64), np.full(64, 12), np.full(9, 15)]
+    vw_cases[0][:3] = (0, 12, 0)
+    for k, wid in enumerate(vw_cases):
+        wid_t = torch.from_numpy(wid.astype(np.int32)).to(dev)
+        offs = torch.cumsum(wid_t, 0, dtype=torch.int32) - wid_t
+        # the last case's payload ends mid-group: word indices clamp
+        live = int(np.minimum(wid, 12).sum())
+        pay = rand_words(max(1, live // 2 if k == 1 else live))
+        for n in (32 * wid.size, 32 * wid.size - 5):
+            tensors_equal(
+                (wk.unslice(pay, n, widths=wid_t, offsets=offs),),
+                (wk.unslice_plain(pay, n, widths=wid_t, offsets=offs),),
+                f"unslice, vw case {k}, {n} samples")
+            n_cases += 1
+
+    def down_edge(fmt, h_, w_, noisy):
+        """A packed (h_, w_) output, smooth or noisy, whose first and last
+        samples jump far from their neighbours."""
+        yy, xx = np.mgrid[0:h_, 0:w_]
+        chans = [(300 + 2 * xx + yy + c * 50
+                  + (rs.randint(0, 400, (h_, w_)) if noisy else 0)) % 1024
+                 for c in range(3)]
+        for ch in chans:
+            ch[0, 0], ch[-1, -1] = 1023, 0
+        if fmt == "1010102":
+            p = (chans[0] | chans[1] << 10 | chans[2] << 20
+                 | 3 << 30).astype(np.uint32)
+            return torch.from_numpy(p.view(np.int32)).to(dev)
+        comp = np.stack([0x3000 + 16 * c for c in chans]
+                        + [np.full((h_, w_), 0x3C00)], -1).astype(np.uint16)
+        return torch.from_numpy(comp.view(np.int16)).to(dev)
+
+    over_cap = 0
+    for fmt in ("1010102", "f16"):
+        for bits in (3, 4, 6, 8):
+            for (h_, w_), noisy, cap in (((37, 53), False, wk.DOWN_ESC),
+                                         ((64, 32), False, wk.DOWN_ESC),
+                                         ((37, 53), True, 16)):
+                packed = down_edge(fmt, h_, w_, noisy)
+                got = wk.down_pack(packed, bits=bits, cap=cap)
+                want = wk.down_pack_plain(packed, bits=bits, cap=cap)
+                tensors_equal((got,), (want,), f"down pack {fmt} {bits} "
+                              f"bits {h_}x{w_} cap {cap}")
+                counts = want[-3:].cpu().numpy()
+                nw = -(-h_ * w_ // 32) * bits
+                if not noisy and (int(want[nw]) != 0 or int(
+                        want[nw + int(counts[0]) - 1]) != h_ * w_ - 1):
+                    raise AssertionError("down pack edge case: the first "
+                                         "and last samples are not the "
+                                         "first and last escapes")
+                over_cap += int((counts > cap).any())
+                n_cases += 1
+    if not over_cap:
+        raise AssertionError("down pack edge cases: no count above cap")
+    torch.cuda.synchronize()
+    log(f"phase 18a wire kernels == plain (torch.equal) on {n_cases} edge "
+        f"cases: unslice at fixed 2-8 bits and vw widths 0-15 (0 and 12 "
+        f"groups, n % 32 != 0, a payload shorter than its offsets), the "
+        f"download pack of RGBA1010102 and RGBAF16 at 3, 4, 6 and 8 bits "
+        f"(escapes at the first and last sample; {over_cap} cases with "
+        f"counts above cap) | {card}")
+
+    def expected_unslice() -> int:
+        """Unslice launches of the wires in wire.RODE: one a vw buffer, one
+        a plane on a fixed rung, one a coefficient plane on a bit-slice
+        rung (i3, i4, i5: ``wire._unpack_one_n``), none for the 10-bit
+        pack, raw or the coefficient wire's other rungs."""
+        n = 0
+        for key, c in wire.RODE.items():
+            route, kind = key.split(":", 1)
+            if route == "p010":
+                n += c * {"vw": 1, "10bit": 0}.get(kind, 2)
+            elif route == "rgb":
+                n += c * (0 if kind == "raw" else 3)
+            elif route == "api1":
+                n += c * {"vw": 1, "raw": 0}.get(kind, 5)
+            elif route == "coeff":
+                n += c * sum(k in ("i3", "i4", "i5")
+                             for k in kind.split(","))
+        return n
+
+    def rode() -> str:
+        out = ", ".join(f"{k} x{v}" for k, v in sorted(wire.RODE.items()))
+        return out or "raw"
+
+    # 18b: 4K encodes over the wires, each byte-identical to raw
+    wire_encodes = {}
+    zero_counts()
+    wire.RODE.clear()
+    n_pack = n_unslice = 0
+    for cfg, kw in configs.items():
+        for v in ("auto", "vw", "2d5", "1d7"):
+            before = dict(wire.RODE)
+            with knobs(UHDR_TPU_WIRE=v):
+                data = encode(img, kw, f"P010 {cfg} UHDR_TPU_WIRE={v}", "18b")
+            took = {k: c - before.get(k, 0) for k, c in wire.RODE.items()
+                    if c != before.get(k, 0)}
+            if data != outputs[cfg][0]:
+                raise AssertionError(f"P010 {cfg} UHDR_TPU_WIRE={v}: file "
+                                     "!= the raw route's")
+            wire_encodes["P010", cfg, v] = took
+            n_pack += 1
+            log(f"phase 18b P010 {cfg} UHDR_TPU_WIRE={v}: rode {took}, file "
+                f"== phase 4's raw file byte for byte")
+        for rname in ("RGBA1010102 HLG", "RGBAF16 LINEAR"):
+            before = dict(wire.RODE)
+            with knobs(UHDR_TPU_WIRE="auto"):
+                data = encode(rgb_imgs[rname][0], kw,
+                              f"{rname} {cfg} UHDR_TPU_WIRE=auto", "18b")
+            took = {k: c - before.get(k, 0) for k, c in wire.RODE.items()
+                    if c != before.get(k, 0)}
+            if data != rgb_outputs[rname, cfg][0]:
+                raise AssertionError(f"{rname} {cfg}: wire file != the raw "
+                                     "route's")
+            n_pack += 1
+            log(f"phase 18b {rname} {cfg} UHDR_TPU_WIRE=auto: rode {took}, "
+                f"file == phase 4's raw file byte for byte")
+        for pname, preset in presets.items():
+            for v in ("auto", "h4s3"):
+                before = dict(wire.RODE)
+                with knobs(UHDR_TPU_WIRE_API1=v):
+                    data, _ = request(
+                        f"API-1 P010+YUV420 {pname} {cfg} "
+                        f"UHDR_TPU_WIRE_API1={v}",
+                        api1(img, sdr_img, kw, preset), 1)
+                took = {k: c - before.get(k, 0)
+                        for k, c in wire.RODE.items()
+                        if c != before.get(k, 0)}
+                if data != api1_out[pname, cfg, "P010+YUV420"][0]:
+                    raise AssertionError(f"API-1 {pname} {cfg} "
+                                         f"UHDR_TPU_WIRE_API1={v}: file != "
+                                         "the raw route's")
+                n_pack += 1
+                log(f"phase 18b API-1 {pname} {cfg} UHDR_TPU_WIRE_API1={v}:"
+                    f" rode {took}, file == phase 4b's raw file byte for "
+                    "byte")
+    # the pipelined encode over phase 7's eight images, each on its own
+    # wire; the files equal phase 7's
+    for cfg, kw in configs.items():
+        jr = port.JpegR(device="cuda", map_dimension_scale_factor=kw["scale"],
+                        use_multi_channel_gainmap=kw["multichannel"])
+        for v in ("auto", "vw"):
+            with knobs(UHDR_TPU_WIRE=v):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs_w = fused.encode_api0_p010_pipelined(jr, many, 95)
+                torch.cuda.synchronize()
+                w_ms = (time.perf_counter() - t0) * 1e3
+            bad = [i for i, (a, b) in enumerate(zip(outs_w, piped[cfg]))
+                   if a != b]
+            if bad or len(outs_w) != n_img:
+                raise AssertionError(f"pipelined wire encode {cfg}: files "
+                                     f"{bad} != phase 7's")
+            n_pack += n_img
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused.encode_api0_p010_pipelined(jr, many, 95)
+            torch.cuda.synchronize()
+            raw_ms = (time.perf_counter() - t0) * 1e3
+            n_pack += n_img
+            log(f"phase 18b pipelined encode {cfg} UHDR_TPU_WIRE={v}: "
+                f"{n_img} images in {w_ms:.1f} ms against {raw_ms:.1f} ms "
+                f"for the raw pipelined route right after; every file == "
+                f"phase 7's | {card}")
+    n_unslice = expected_unslice()
+    wire_enc_launches = read_counts("wire encodes", {
+        "pack_scan": n_pack, "wire_unslice": n_unslice})
+    log(f"phase 18b wires taken: {rode()}")
+
+    # 18c: 4K decodes over the coefficient and download wires
+    def decode_req(data, ct, what, quiet=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = port.UhdrDecoder(device="cuda")
+        dec.set_image(data)
+        dec.set_out_color_transfer(ct)
+        dec.set_out_img_format(fmt_of[ct])
+        out = dec.decode().planes[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not quiet:
+            log(f"phase 18c decode {what}: {ms:.1f} ms | {card}")
+        return out, ms
+
+    zero_counts()
+    wire.RODE.clear()
+    n_apply = n_linear = n_down = 0
+    for cfg in configs:
+        for ct in (CT.HLG, CT.LINEAR):
+            want = decoded[cfg, ct]
+            for env in ({"UHDR_TPU_WIRE": "auto"},
+                        {"UHDR_TPU_WIRE_DOWN": "auto"},
+                        {"UHDR_TPU_WIRE_DOWN": "4"},
+                        {"UHDR_TPU_WIRE_DOWN": "8"}):
+                wire._DOWN_STICKY.clear()
+                before = dict(wire.RODE)
+                with knobs(**env):
+                    got, _ = decode_req(outputs[cfg][0], ct,
+                                        f"{cfg} {ct.name} {env}")
+                took = {k: c - before.get(k, 0) for k, c in wire.RODE.items()
+                        if c != before.get(k, 0)}
+                if not np.array_equal(testing.host_packed(got),
+                                      testing.host_packed(want)):
+                    raise AssertionError(f"decode {cfg} {ct.name} {env}: "
+                                         "output != the raw decode's")
+                n_apply += 1
+                n_linear += ct == CT.LINEAR
+                if "UHDR_TPU_WIRE_DOWN" in env:
+                    # the 1010102 ladder from 4 tries 6 after an overflow
+                    auto = env["UHDR_TPU_WIRE_DOWN"] == "auto"
+                    n_down += 2 if auto and ct != CT.LINEAR and \
+                        "down:4" not in took else 1
+                log(f"phase 18c decode {cfg} {ct.name} {env}: rode {took}, "
+                    "output == phase 5's raw decode")
+    for cfg, ct in (("benchmark", CT.HLG), ("default", CT.LINEAR)):
+        jr = port.JpegR(device="cuda")
+        with knobs(UHDR_TPU_WIRE="auto"):
+            outs_b = jr.decode_to_device_batch(piped[cfg], ct)
+        for i, ((got, _), want) in enumerate(zip(outs_b, per_image[cfg, ct])):
+            bit_identical(got, want, f"coefficient-wire batch decode {cfg} "
+                          f"{ct.name} stream {i}")
+        n_apply += n_img
+        n_linear += n_img if ct == CT.LINEAR else 0
+        log(f"phase 18c batch decode {cfg} {ct.name} UHDR_TPU_WIRE=auto: "
+            f"{n_img} streams, every output bit-identical to phase 8's raw "
+            f"per-image route")
+    wire_dec_launches = read_counts("wire decodes", {
+        "apply_gainmap": n_apply, "apply_linear": n_linear,
+        "down_pack": n_down, "wire_unslice": expected_unslice()})
+    log(f"phase 18c wires taken: {rode()}")
+
+    # 18d: times, each route beside raw (host clock, medians after a warm-up
+    # of each; CUDA events for the kernels)
+    def med(fn, reps=3):
+        fn()
+        t = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    def enc_fn(im, kw, env):
+        def run():
+            with knobs(**env):
+                enc = port.UhdrEncoder(device="cuda")
+                enc.set_raw_image(im, port.ImgLabel.HDR)
+                enc.set_quality(95, port.ImgLabel.BASE)
+                enc.set_gainmap_scale_factor(kw["scale"])
+                enc.set_using_multi_channel_gainmap(kw["multichannel"])
+                enc.encode()
+        return run
+
+    def api1_fn(kw, env):
+        def run():
+            with knobs(**env):
+                enc = port.UhdrEncoder(device="cuda")
+                api1(img, sdr_img, kw, presets["REALTIME"])(enc)
+                enc.encode()
+        return run
+
+    def upload_ms(upload):
+        """Median ms of upload() and a synchronize, 5 runs."""
+        return med(upload, 5)
+
+    rgb_img = rgb_imgs["RGBA1010102 HLG"][0]
+    rgb_chans, _ = wire._split_rgb_channels(rgb_img.planes[0],
+                                            Fmt.RGBA1010102)
+    api1_planes = (p010_planes, [np.asarray(p) for p in sdr_img.planes[:3]])
+    for cfg, kw in configs.items():
+        for what, raw_fn, wire_fn, pack, raw_arrays in (
+                ("P010 UHDR_TPU_WIRE=vw", enc_fn(img, kw, {}),
+                 enc_fn(img, kw, {"UHDR_TPU_WIRE": "vw"}),
+                 lambda: wire.pack_vw_wire(*p010_planes)[0], p010_planes),
+                ("RGBA1010102 UHDR_TPU_WIRE=auto", enc_fn(rgb_img, kw, {}),
+                 enc_fn(rgb_img, kw, {"UHDR_TPU_WIRE": "auto"}),
+                 lambda: [wire.pack_vw_chan(c) for c in rgb_chans],
+                 [rgb_img.planes[0]]),
+                ("API-1 REALTIME UHDR_TPU_WIRE_API1=vw", api1_fn(kw, {}),
+                 api1_fn(kw, {"UHDR_TPU_WIRE_API1": "vw"}),
+                 lambda: wire.pack_api1_vw_wire(*api1_planes[0],
+                                                api1_planes[1]),
+                 api1_planes[0] + api1_planes[1])):
+            bufs = pack()
+            bufs = bufs if isinstance(bufs, list) else [bufs]
+            pack_ms = med(pack)
+            raw_req = [med(raw_fn)]
+            wire_req = [med(wire_fn)]
+            raw_req.append(med(raw_fn))
+            wire_req.append(med(wire_fn))
+            log(f"phase 18d {what} {cfg}: request {wire_req[0]:.1f} / "
+                f"{wire_req[1]:.1f} ms against raw {raw_req[0]:.1f} / "
+                f"{raw_req[1]:.1f} ms (medians of 3, raw and wire in turns);"
+                f" host pack {pack_ms:.1f} ms; upload "
+                f"{sum(b.nbytes for b in bufs) / 1e6:.2f} MB in "
+                f"{upload_ms(lambda: [wire._upload(b, dev) for b in bufs]):.2f}"
+                f" ms against raw "
+                f"{sum(a.nbytes for a in raw_arrays) / 1e6:.2f} MB in "
+                f"{upload_ms(lambda: fused.upload_planes(raw_arrays, dev)):.2f}"
+                f" ms | {card}")
+
+    # the unslice kernel on the 4K P010 vw wire
+    buf_vw, _ = wire.pack_vw_wire(*p010_planes)
+    gy, guv, wyw, wuvw = wire._vw_header_words(h, w)
+    buf_d = wire._upload(buf_vw, dev)
+    wa = torch.cat([wire._vw_widths(buf_d[:wyw])[:gy],
+                    wire._vw_widths(buf_d[wyw:wyw + wuvw])[:guv]])
+    wa = wa.to(torch.int32).contiguous()
+    offs = torch.cumsum(wa, 0, dtype=torch.int32) - wa
+    payload = buf_d[wyw + wuvw:].contiguous()
+    n_vw = 32 * wa.numel()
+    tensors_equal(
+        (wk.unslice(payload, n_vw, widths=wa, offsets=offs),),
+        (wk.unslice_plain(payload, n_vw, widths=wa, offsets=offs),),
+        "unslice on the 4K P010 vw wire")
+    u_bytes = 4 * (int(wa.clamp(max=12).sum()) + 2 * wa.numel() + n_vw)
+    # operations: a shift, an and and an or-shift for each word of a
+    # sample's group
+    u_bound, u_by = bound(u_bytes, 3 * 32 * int(wa.clamp(max=12).sum()))
+    u_ms = cuda_ms(lambda: wk.unslice(payload, n_vw, widths=wa,
+                                      offsets=offs), 20)
+    u_kernel = testing.launch_ms(lambda: wk.UNSLICE_KERNEL(
+        payload, n_vw, widths=wa, offsets=offs))
+    u_plain = cuda_ms(lambda: wk.unslice_plain(payload, n_vw, widths=wa,
+                                               offsets=offs), 3)
+    unslice_row = dict(ms=u_ms, kernel_ms=u_kernel, plain_ms=u_plain, err=0,
+                       bound_ms=u_bound, bound_by=u_by)
+    log(f"phase 18d unslice kernel, the 4K P010 vw wire ({wa.numel()} "
+        f"groups, {buf_vw.nbytes / 1e6:.2f} MB): dispatcher {u_ms:.4f} ms, "
+        f"kernel alone {u_kernel:.4f} ms, plain {u_plain:.3f} ms (CUDA "
+        f"events), bound {u_bound:.4f} ms ({u_by}, {u_bytes / 1e6:.1f} MB), "
+        f"{u_bound / u_kernel:.0%} of it | {card}")
+
+    # decodes: the coefficient wire and the download wire beside raw
+    for cfg in configs:
+        data = outputs[cfg][0]
+        primary, pinfo, gm_jpeg, gm_info, *_ = \
+            port.JpegR(device="cuda")._parse_jpegr(data)
+        coeffs = fused.decode_coefficients(primary, pinfo)[0] \
+            + fused.decode_coefficients(gm_jpeg, gm_info)[0]
+        blob = wire.pack_coeff_blob(coeffs, stage=True)
+        c_pack = med(lambda: wire.pack_coeff_blob(coeffs, stage=True))
+        def hlg_decode():
+            decode_req(data, CT.HLG, "", quiet=True)
+
+        raw_t = med(hlg_decode)
+        with knobs(UHDR_TPU_WIRE="auto"):
+            wire_t = med(hlg_decode)
+        log(f"phase 18d coefficient wire {cfg} HLG ({blob[1]}): request "
+            f"{wire_t:.1f} ms against raw {raw_t:.1f} ms (medians of 3); "
+            f"host pack {c_pack:.1f} "
+            f"ms; upload {blob[0].numel() / 1e6:.2f} MB in "
+            f"{upload_ms(lambda: pixel.to_device(blob[0], dev)):.2f} ms "
+            f"against raw {sum(c.nbytes for c in coeffs) / 1e6:.2f} MB in "
+            f"{upload_ms(lambda: fused.upload_coeff_planes(coeffs, dev)):.2f}"
+            f" ms | {card}")
+        for ct, bits, fetch in ((CT.HLG, 4, wire.fetch_packed_1010102),
+                                (CT.LINEAR, 8, wire.fetch_packed_f16)):
+            packed = torch.from_numpy(testing.host_packed(decoded[cfg, ct])
+                                      .view(np.int32 if ct == CT.HLG
+                                            else np.int16)).to(dev)
+            with knobs(UHDR_TPU_WIRE_DOWN=str(bits)):
+                got = fetch(packed, h=h, w=w)
+                down_ms = med(lambda: fetch(packed, h=h, w=w))
+            if not np.array_equal(got, testing.host_packed(decoded[cfg, ct])):
+                raise AssertionError(f"download wire {cfg} {ct.name} != raw")
+            raw_down = med(lambda: packed.cpu())
+            wire_buf = wk.down_pack(packed, bits=bits)
+            tensors_equal((wire_buf,), (wk.down_pack_plain(packed,
+                                                           bits=bits),),
+                          f"down pack on the 4K {cfg} {ct.name} output")
+            d_bytes = nbytes(packed, wire_buf)
+            # operations a sample and channel: the channel (shift, and), the
+            # two differences, code = d + half, the range test (two
+            # compares), the select of half, the escape count; then a shift,
+            # an and and a ballot for each of the code's `bits` bits
+            d_bound, d_by = bound(d_bytes, 3 * h * w * (9 + 3 * bits))
+            d_ms = cuda_ms(lambda: wk.down_pack(packed, bits=bits), 20)
+            d_kernel = testing.launch_ms(
+                lambda: wk.DOWN_PACK_KERNEL(packed, bits=bits))
+            d_plain = cuda_ms(lambda: wk.down_pack_plain(packed, bits=bits),
+                              3)
+            if cfg == "default" and ct == CT.HLG:
+                down_row = dict(ms=d_ms, kernel_ms=d_kernel, plain_ms=d_plain,
+                                err=0, bound_ms=d_bound, bound_by=d_by)
+            counts = wire_buf[-3:].cpu().tolist()
+            log(f"phase 18d download wire {cfg} {ct.name} at {bits} bits: "
+                f"{wire_buf.numel() * 4 / 1e6:.2f} MB (escapes {counts}) "
+                f"fetched in {down_ms:.2f} ms against raw "
+                f"{nbytes(packed) / 1e6:.2f} MB in {raw_down:.2f} ms "
+                f"(.cpu(), the default route); the download pack kernel "
+                f"{d_ms:.4f} ms (dispatcher), {d_kernel:.4f} ms alone, plain "
+                f"{d_plain:.3f} ms (CUDA events), bound {d_bound:.4f} ms "
+                f"({d_by}, {d_bytes / 1e6:.1f} MB), "
+                f"{d_bound / d_kernel:.0%} of it | {card}")
+    # the download wire where it fits: a smooth 4K output (the decodes above
+    # overflow every width's escape list and go raw)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = [(xx // 8 + yy // 8 + 64 * c_) % 1024 for c_ in range(3)]
+    for ct, bits, fetch, host in (
+            (CT.HLG, 4, wire.fetch_packed_1010102,
+             (smooth[0] | smooth[1] << 10 | smooth[2] << 20 | 3 << 30)
+             .astype(np.uint32)),
+            (CT.LINEAR, 8, wire.fetch_packed_f16,
+             np.stack([0x3000 + 4 * s for s in smooth]
+                      + [np.full((h, w), 0x3C00)], -1).astype(np.uint16))):
+        packed = torch.from_numpy(host.view(
+            np.int32 if ct == CT.HLG else np.int16)).to(dev)
+        wire.RODE.clear()
+        with knobs(UHDR_TPU_WIRE_DOWN=str(bits)):
+            if not np.array_equal(fetch(packed, h=h, w=w), host):
+                raise AssertionError(f"download wire, smooth {ct.name} != "
+                                     "raw")
+            if dict(wire.RODE) != {f"down:{bits}": 1}:
+                raise AssertionError(f"smooth {ct.name}: not on the wire "
+                                     f"({dict(wire.RODE)})")
+            down_ms = med(lambda: fetch(packed, h=h, w=w))
+        raw_down = med(lambda: packed.cpu())
+        wire_buf = wk.down_pack(packed, bits=bits)
+        log(f"phase 18d download wire, a smooth 4K {ct.name} output at "
+            f"{bits} bits (it fits): {wire_buf.numel() * 4 / 1e6:.2f} MB "
+            f"(escapes {wire_buf[-3:].cpu().tolist()}) fetched and unpacked "
+            f"in {down_ms:.2f} ms against raw {nbytes(packed) / 1e6:.2f} MB "
+            f"in {raw_down:.2f} ms (.cpu()) | {card}")
+    del buf_d, payload, packed, wire_buf, yy, xx, smooth
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -2670,13 +3176,24 @@ def main() -> int:
     linear = apply_launches["apply_linear"] \
         + batch_launches[CT.LINEAR]["apply_linear"] \
         + general_launches["apply_linear"] + host_launches["apply_linear"] \
-        + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches
+        + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches \
+        + wire_dec_launches["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
         + host_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in slice9) \
-        + sharded_apply_launches - linear
+        + sharded_apply_launches + wire_dec_launches["apply_gainmap"] \
+        - linear
+    log(f"launches of phases 3-17, no wire knob set: pack_scan "
+        f"{before_wires['pack_scan']}, apply HLG/PQ "
+        f"{hlg_pq - wire_dec_launches['apply_gainmap'] + wire_dec_launches['apply_linear']}"
+        f", apply LINEAR {linear - wire_dec_launches['apply_linear']}, scan "
+        f"kernel {before_wires['forward_dct']}; phase 18 added pack_scan "
+        f"{wire_enc_launches['pack_scan']}, apply "
+        f"{wire_dec_launches['apply_gainmap']} (LINEAR "
+        f"{wire_dec_launches['apply_linear']}), scan kernel "
+        f"{wire_enc_launches['forward_dct']}")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -2684,7 +3201,7 @@ def main() -> int:
                + compressed_launches["pack_scan"] + pipe_launches
                + general_input_launches["pack_scan"]
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
-               + sharded_pack_launches,
+               + sharded_pack_launches + wire_enc_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -2709,7 +3226,18 @@ def main() -> int:
                "fused.py:62 (_scan_coeffs, jpeg/dct.py:151 forward_plane; "
                "jpeg/pack_kernel.py:559 _stream_inputs)",
                dct_launches[0], dct_rows["default"],
-               max(r["err"] for r in dct_rows.values()))]}))
+               max(r["err"] for r in dct_rows.values())),
+        # the JAX package un-slices its upload wires and packs its download
+        # wire with XLA ops, no pallas_call (fused.py)
+        record("wire_unslice", "wire_kernel.cu",
+               "fused.py:299 (_vw_unslice; fused.py:126 _delta_decode_plane,"
+               " fused.py:1835 _unpack_one_n)",
+               wire_enc_launches["wire_unslice"]
+               + wire_dec_launches["wire_unslice"], unslice_row, 0),
+        record("down_pack", "wire_kernel.cu",
+               "fused.py:2022 (_down_delta_sections; fused.py:2053 / :2123 "
+               "_pack_down_wire_1010102 / _f16)",
+               wire_dec_launches["down_pack"], down_row, 0)]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {

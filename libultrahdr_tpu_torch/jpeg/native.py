@@ -26,7 +26,14 @@ rebuilt there rather than loaded.  Bound here:
 - the host decode engine (``JpegR.decode_host``): ``idct_plane`` (AAN float
   IDCT to u8), ``ycbcr_to_rgb_planar`` (a 3-channel gain map's colour
   decode) and ``apply_gainmap_host`` (IDW, gain, OETF and packing in one
-  pass).
+  pass);
+- the wire codecs' host halves (``wire.py``): ``pack_p010_10bit`` (the
+  dense 10-bit fallback), ``pack_delta_into`` / ``pack_delta7_into`` /
+  ``pack_delta7`` (the P010 delta rungs), ``pack_delta_g_into`` (the RGB
+  and SDR rungs), ``pack_vw_into`` (the variable-width group wire),
+  ``pack_slices_into`` (the coefficient bit-slice rungs),
+  ``extract_channel10`` (an RGBA1010102 channel) and ``unpack_delta2d``
+  (the download wire's host half).
 """
 
 from __future__ import annotations
@@ -126,6 +133,40 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int, ctypes.c_void_p]
+            lib.uhdr_pack_p010_10bit.restype = None
+            lib.uhdr_pack_p010_10bit.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            lib.uhdr_pack_delta.restype = ctypes.c_int64
+            lib.uhdr_pack_delta.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_pack_delta_g.restype = ctypes.c_int64
+            lib.uhdr_pack_delta_g.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int32, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_pack_vw.restype = ctypes.c_int64
+            lib.uhdr_pack_vw.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_pack_slices.restype = ctypes.c_int64
+            lib.uhdr_pack_slices.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64]
+            lib.uhdr_unpack_delta2d.restype = ctypes.c_int64
+            lib.uhdr_unpack_delta2d.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int32, ctypes.c_void_p]
+            lib.uhdr_extract_channel10.restype = None
+            lib.uhdr_extract_channel10.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p]
             lib.uhdr_apply_gainmap_host.restype = ctypes.c_int
             lib.uhdr_apply_gainmap_host.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
@@ -376,4 +417,146 @@ def apply_gainmap_host(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         out.ctypes.data)
     if rc != 0:
         raise RuntimeError(f"apply_gainmap_host failed: {rc}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the wire codecs' host halves (wire.py)
+
+def pack_p010_10bit(arr: np.ndarray) -> np.ndarray:
+    """Pack the 10 MSB-resident bits of a uint16 array into a dense 10-bit
+    little-endian stream: (n,) u16 -> (ceil(n/16)*10,) u16."""
+    lib = get_lib()
+    flat = np.ascontiguousarray(arr, np.uint16).reshape(-1)
+    pad = (-flat.size) % 16
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.uint16)])
+    out = np.empty((flat.size // 16) * 10, np.uint16)
+    lib.uhdr_pack_p010_10bit(flat.ctypes.data, flat.size, out.ctypes.data)
+    return out
+
+
+DELTA7_ESC_CAP = 65536
+
+
+def pack_delta_into(plane: np.ndarray, uv_interleaved: bool,
+                    words: np.ndarray, esc_idx: np.ndarray,
+                    esc_val: np.ndarray, *, two_d: bool = False,
+                    bits: int = 7) -> bool:
+    """Delta + bit-sliced packing of a P010 plane (``uhdr_pack_delta``)
+    into caller-provided buffers (views into one wire buffer); the escape
+    capacity is esc_idx's length, padded entries index 1 << 30.  `two_d`
+    removes the vertical delta first.  False when the escapes overflow."""
+    lib = get_lib()
+    p = np.ascontiguousarray(plane, np.uint16)
+    rows, cols = p.shape
+    esc_idx[:] = np.int32(1 << 30)
+    esc_val[:] = 0
+    n_esc = lib.uhdr_pack_delta(p.ctypes.data, rows, cols,
+                                int(bool(uv_interleaved)), int(bool(two_d)),
+                                int(bits), words.ctypes.data,
+                                esc_idx.ctypes.data, esc_val.ctypes.data,
+                                esc_idx.size)
+    return n_esc >= 0
+
+
+def pack_delta7_into(plane: np.ndarray, uv_interleaved: bool,
+                     words: np.ndarray, esc_idx: np.ndarray,
+                     esc_val: np.ndarray) -> bool:
+    """pack_delta_into at the 1D/7-bit default (the original delta7)."""
+    return pack_delta_into(plane, uv_interleaved, words, esc_idx, esc_val)
+
+
+def pack_delta_g_into(plane_u16: np.ndarray, words: np.ndarray,
+                      esc_idx: np.ndarray, esc_val32: np.ndarray, *,
+                      two_d: bool = True, bits: int = 5, shift: int = 0,
+                      base: int = 512) -> bool:
+    """The general delta pack (``uhdr_pack_delta_g``): raw u16 samples
+    (shift 0) or MSB-aligned 10-bit ones (shift 6), int32 escape values.
+    False on escape overflow."""
+    lib = get_lib()
+    p = np.ascontiguousarray(plane_u16, np.uint16)
+    rows, cols = p.shape
+    esc_idx[:] = np.int32(1 << 30)
+    esc_val32[:] = 0
+    n = lib.uhdr_pack_delta_g(p.ctypes.data, rows, cols, 0,
+                              int(bool(two_d)), int(bits), int(shift),
+                              int(base), words.ctypes.data,
+                              esc_idx.ctypes.data, esc_val32.ctypes.data,
+                              esc_idx.size)
+    return n >= 0
+
+
+def pack_vw_into(plane: np.ndarray, uv_interleaved: bool,
+                 width_words: np.ndarray, payload: np.ndarray, *,
+                 shift: int = 6, base: int = 512) -> int | None:
+    """The variable-width group pack (``uhdr_pack_vw``): 2D residuals,
+    each 32-sample group bit-sliced at its own width 0..12 (4 bits a group
+    in width_words).  Returns the payload's live word count, or None when
+    the payload is too small or a group needs more than 12 bits."""
+    lib = get_lib()
+    p = np.ascontiguousarray(plane, np.uint16)
+    rows, cols = p.shape
+    n = lib.uhdr_pack_vw(p.ctypes.data, rows, cols,
+                         int(bool(uv_interleaved)), int(shift), int(base),
+                         width_words.ctypes.data, payload.ctypes.data,
+                         payload.size)
+    return int(n) if n >= 0 else None
+
+
+def pack_slices_into(flat_i16: np.ndarray, bits: int, words: np.ndarray,
+                     esc_idx: np.ndarray, esc_val: np.ndarray) -> bool:
+    """Bit-slice a flat int16 stream at `bits` a sample with escapes
+    (``uhdr_pack_slices``, the coefficient wire's rungs) into caller-owned
+    views; escape capacity esc_idx.size.  False on escape overflow."""
+    lib = get_lib()
+    a = np.ascontiguousarray(flat_i16, np.int16)
+    esc_idx[:] = np.int32(1 << 30)
+    esc_val[:] = 0
+    n = lib.uhdr_pack_slices(a.ctypes.data, a.size, int(bits),
+                             words.ctypes.data, esc_idx.ctypes.data,
+                             esc_val.ctypes.data, esc_idx.size)
+    return n >= 0
+
+
+def pack_delta7(plane: np.ndarray, uv_interleaved: bool, *,
+                two_d: bool = False, bits: int = 7):
+    """pack_delta_into with buffers of its own: (words (n32, bits) u32,
+    esc_idx (CAP,) i32, esc_val (CAP,) i16), or None on overflow."""
+    rows, cols = plane.shape
+    words = np.empty((-(-(rows * cols) // 32), bits), np.uint32)
+    esc_idx = np.empty(DELTA7_ESC_CAP, np.int32)
+    esc_val = np.empty(DELTA7_ESC_CAP, np.int16)
+    if not pack_delta_into(plane, uv_interleaved, words, esc_idx, esc_val,
+                           two_d=two_d, bits=bits):
+        return None
+    return words, esc_idx, esc_val
+
+
+def extract_channel10(plane_u32: np.ndarray, shift: int) -> np.ndarray:
+    """((plane >> shift) & 1023) as u16 (an RGBA1010102 channel for the RGB
+    upload wire)."""
+    lib = get_lib()
+    p = np.ascontiguousarray(plane_u32, np.uint32)
+    out = np.empty(p.shape, np.uint16)
+    lib.uhdr_extract_channel10(p.ctypes.data, p.size, shift,
+                               out.ctypes.data)
+    return out
+
+
+def unpack_delta2d(words: np.ndarray, esc_idx: np.ndarray,
+                   esc_val: np.ndarray, n_esc: int, rows: int, cols: int,
+                   bits: int, base: int) -> np.ndarray:
+    """The download wire's host half: one channel's bit-sliced 2D-delta
+    codes -> (rows, cols) u16 samples.  Escape indices ascend."""
+    lib = get_lib()
+    w = np.ascontiguousarray(words, np.uint32)
+    ei = np.ascontiguousarray(esc_idx, np.int32)
+    ev = np.ascontiguousarray(esc_val, np.int32)
+    out = np.empty((rows, cols), np.uint16)
+    r = lib.uhdr_unpack_delta2d(w.ctypes.data, ei.ctypes.data,
+                                ev.ctypes.data, int(n_esc), rows, cols,
+                                int(bits), int(base), out.ctypes.data)
+    if r < 0:
+        raise ValueError(f"unpack_delta2d failed: {r}")
     return out

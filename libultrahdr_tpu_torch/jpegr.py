@@ -42,6 +42,14 @@ concurrent callers are coalesced (``_DeviceDecodeMicrobatcher``) into one
 run on a thread pool, and each image's upload and device stages run on a
 side stream as soon as its Huffman decode ends, one apply-kernel launch an
 image.
+
+The fused routes' transfers are raw unless a knob asks for a wire
+(``wire.py``): with ``UHDR_TPU_WIRE`` set, each image's coefficient planes
+go up as one ``pack_coeff_wire_best`` blob (packed on the batch's host pool;
+a batch group keeps the wire kind of its first member, the others take the
+per-image route, as in the JAX package); with ``UHDR_TPU_WIRE_DOWN`` set,
+``decode``'s fused output comes down through ``fetch_packed_1010102`` /
+``fetch_packed_f16``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ import time
 import numpy as np
 import torch
 
-from . import fused
+from . import fused, wire
 from .container import icc as icc_mod
 from .container import iso21496, jpegr_container, segments, xmp
 from .container.xmp import JPEGR_VERSION  # noqa: F401  (JAX's name)
@@ -667,13 +675,19 @@ class JpegR:
     def _try_decode_fused(self, plan: dict, primary, pinfo, gm_jpeg,
                           gm_info, metadata, output_ct, max_display_boost,
                           gm_cg):
-        """The fused decode of a stream that `plan` (``_fused_plan``) takes,
-        with a raw download: (dest RawImage, gainmap RawImage) in host
-        memory."""
+        """The fused decode of a stream that `plan` (``_fused_plan``) takes:
+        (dest RawImage, gainmap RawImage) in host memory, the output
+        downloaded raw or, with UHDR_TPU_WIRE_DOWN set, through the download
+        wire."""
         packed_dev, gm_dev = self._decode_planned(
             plan, fused.decode_coefficients(primary, pinfo),
             fused.decode_coefficients(gm_jpeg, gm_info), metadata,
             output_ct, max_display_boost)
+        if wire.down_wire_enabled():
+            fetch = fused.fetch_packed_f16 \
+                if ColorTransfer(output_ct) == ColorTransfer.LINEAR \
+                else fused.fetch_packed_1010102
+            packed_dev = fetch(packed_dev, h=pinfo.height, w=pinfo.width)
         return (_output_image(packed_dev, plan["hdr_cg"], output_ct,
                               pinfo.width, pinfo.height),
                 _gainmap_image(gm_dev, gm_cg))
@@ -718,19 +732,31 @@ class JpegR:
                 "hdr_cg": h_cg, "use_base_cg": bool(metadata.use_base_cg)}
 
     def _decode_planned(self, plan: dict, base, gm, metadata, output_ct,
-                        max_display_boost, device=None):
+                        max_display_boost, device=None, coeff_wire=None):
         """The device half of a fused decode on `device` (by default
         ``self.device``) from the host Huffman decode of both images
         (``fused.decode_coefficients`` results, the coefficient planes as
-        host arrays or pinned tensors): raw upload, ``_decode_device_core``
-        with one apply launch.  Returns (packed output, gain map u8)."""
-        device = device or self.device
+        host arrays or pinned tensors): the upload, ``_decode_device_core``
+        with one apply launch.  Returns (packed output, gain map u8).
+
+        The planes go up raw, or with UHDR_TPU_WIRE set as one
+        ``pack_coeff_wire_best`` blob: `coeff_wire` (a
+        ``wire.pack_coeff_blob`` result), packed here when not given."""
+        device = torch.device(device or self.device)
         weight = apply_ops.gainmap_weight(
             max_display_boost, float(metadata.hdr_capacity_min),
             float(metadata.hdr_capacity_max))
+        if coeff_wire is None and wire.coeff_wire_enabled():
+            coeff_wire = wire.pack_coeff_blob(
+                list(base[0]) + list(gm[0]), stage=device.type == "cuda")
+        if coeff_wire is not None:
+            planes = wire.upload_coeff_blob(coeff_wire, device)
+            base_c, gm_c = planes[:len(base[0])], planes[len(base[0]):]
+        else:
+            base_c = fused.upload_coeff_planes(base[0], device)
+            gm_c = fused.upload_coeff_planes(gm[0], device)
         return fused._decode_device_core(
-            fused.upload_coeff_planes(base[0], device), base[1],
-            fused.upload_coeff_planes(gm[0], device), gm[1],
+            base_c, base[1], gm_c, gm[1],
             apply_ops.metadata_to_arrays(metadata), np.float32(weight),
             out_ct=output_ct, **plan)
 
@@ -1053,9 +1079,18 @@ class JpegR:
         for dev in used:
             fused.prepare_device(dev)
         outs = {}
+        # with UHDR_TPU_WIRE set, one wire kind a group, the first member's
+        # (the JAX package's batch runs one program over the group); the
+        # others take the per-image route.  Unset, nothing waits for the
+        # first member: each image goes as soon as its host decode ends.
+        kind = None
+        if wire.coeff_wire_enabled():
+            kind = min(group, key=group.get).result()[2][1]
         for f in concurrent.futures.as_completed(group):
             i = group[f]
-            base, gm = f.result()
+            base, gm, coeff_wire = f.result()
+            if coeff_wire is not None and coeff_wire[1] != kind:
+                continue
             e = entries[i]
             dev = devices[i]
             ctx = contextlib.nullcontext()
@@ -1066,7 +1101,7 @@ class JpegR:
             with ctx:
                 packed, _ = self._decode_planned(
                     e["plan"], base, gm, e["metadata"], output_ct,
-                    max_display_boost, dev)
+                    max_display_boost, dev, coeff_wire)
             outs[i] = (packed, e["metadata"])
         for dev in used:
             cur = torch.cuda.current_stream(dev)
@@ -1105,18 +1140,24 @@ def _gainmap_image(gm_u8: torch.Tensor, gm_cg) -> RawImage:
 
 
 def _host_decode(e: dict, stage: bool):
-    """The host Huffman decode of a batch entry's two images: [(coefficient
-    planes, quant tables)] for the base and the gain map, the planes staged
-    in pinned memory when `stage` (for a copy to the card that does not
-    block)."""
+    """The host Huffman decode of a batch entry's two images: ((coefficient
+    planes, quant tables) of the base, the same of the gain map, the
+    coefficient wire or None).  With UHDR_TPU_WIRE set the planes are
+    packed here into one ``pack_coeff_wire_best`` blob (a
+    ``wire.pack_coeff_blob`` result); either the blob or the planes are
+    staged in pinned memory when `stage` (for a copy to the card that does
+    not block)."""
     out = []
+    packing = wire.coeff_wire_enabled()
     for jpeg, info in ((e["primary"], e["pinfo"]), (e["gm_jpeg"],
                                                    e["gm_info"])):
         coeffs, qts, _ = fused.decode_coefficients(jpeg, info)
-        if stage:
+        if stage and not packing:
             coeffs = [pixel.pinned(c) for c in coeffs]
         out.append((coeffs, qts))
-    return out
+    coeff_wire = wire.pack_coeff_blob(out[0][0] + out[1][0], stage) \
+        if packing else None
+    return out[0], out[1], coeff_wire
 
 
 def is_uhdr_image(data: bytes) -> bool:

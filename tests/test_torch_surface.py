@@ -58,22 +58,12 @@ CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
 # JAX modules the port holds under another name
 PORTED_AS = {"ops/pallas_apply.py": "ops/apply_kernel.py"}
 
-_WIRES = "the TPU-link wire codecs (ROADMAP Queue 1 item 12)"
 _PACK_ROUTES = ("the XLA and Pallas pack routes; their kernels are "
                 "csrc/block_pack_kernel.cu and csrc/pack_kernel.cu, their "
                 "v1/v2 routes testing.pack_scans_v1/v2")
 # module -> {public name or "function(parameter)": why the port lacks it}
 EXCLUDED = {
     "fused.py": {
-        **{n: _WIRES for n in (
-            "pack_delta_wire", "pack_delta7_wire", "pack_vw_wire",
-            "pack_vw_chan", "pack_rgb_wire", "pack_rgb_chan",
-            "pack_api1_wire", "pack_api1_vw_wire", "pack_coeffs_for_upload",
-            "pack_coeff_wire", "pack_coeff_wire_n", "pack_coeff_wire3",
-            "pack_coeff_wire4", "pack_coeff_wire5", "pack_coeff_wire_sparse",
-            "pack_coeff_wire_best", "COEFF_WIRE_LADDER",
-            "unpack_down_wire_1010102", "unpack_down_wire_f16",
-            "fetch_packed_1010102", "fetch_packed_f16")},
         "fetch_scan": _PACK_ROUTES + " (the XLA route's byte download)",
         "fetch_blocks": _PACK_ROUTES + " (one scan's drain; the port "
                         "drains both scans with fetch_blocks_multi)",
@@ -83,11 +73,6 @@ EXCLUDED = {
         "use_pack_kernel", "block_buffers_t", "compact_scans",
         "total_words_v2")},
     "jpeg/native.py": {
-        **{n: _WIRES for n in (
-            "extract_channel10", "unpack_delta2d", "pack_p010_10bit",
-            "DELTA7_ESC_CAP", "pack_delta_into", "pack_delta7_into",
-            "pack_delta_g_into", "pack_vw_into", "pack_slices_into",
-            "pack_delta7")},
         **{n: _PACK_ROUTES + " (the XLA route's host stuffing)"
            for n in ("stuff_scan", "stuff_scan_ranges")},
     },
@@ -107,9 +92,12 @@ EXCLUDED = {
         "pack_yuv444(chroma_bias)": "unused by every caller, dropped in PR 3",
     },
 }
-# the delta7 K-batch encode (libultrahdr_tpu/fused.py:2608-2700) is private
+# the K-batch encode (libultrahdr_tpu/fused.py:2604-2700) is private
 # (_stitch_image_streams, _dispatch_api0_p010_batch,
-# _drain_api0_p010_batch), so no public name stands for it here
+# _drain_api0_p010_batch), so no public name stands for it here; it is not
+# ported: on the card it made the pipelined encode slower than raw (PERF.md),
+# and the port's pipelined encode takes each image's wire instead
+# (ROADMAP.md Queue 1 item 12b)
 
 
 def _modules():

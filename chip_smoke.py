@@ -180,6 +180,21 @@ held against the plain composition on its own inputs:
    kernel launches as its wires imply; 18d times, each route beside raw in
    turns (host clock medians: request, host pack, upload; the kernels by
    CUDA events beside their bounds; the download against ``.cpu()``);
+19. the C ABI (``libultrahdr_tpu_torch/capi/ultrahdr_tpu.h``) on the card,
+   ``UHDR_TPU_TORCH_DEVICE`` unset: (a) the walkthrough ``test_capi.c`` and
+   ``capi_roundtrip`` of phase 4's 4K P010 in both configurations (the
+   default's also from two C threads), each a process of its own on the
+   shim linked against libpython: exit 0, each file byte for byte phase 4's
+   ``UhdrEncoder`` file, each HLG / LINEAR decode phase 5's output; prints
+   the first call's cost (the embedded interpreter's start and imports,
+   the first encode); (b) the shim built for a running interpreter, loaded
+   here with ``ctypes.CDLL`` (``capi/abi.py``): both configurations encoded
+   and decoded to HLG and LINEAR through the C functions, one pack and two
+   scan-kernel launches an encode, one apply launch a decode, every result
+   equal to the direct call's; two Python threads encoding through their
+   own handles, equal files; each request beside the direct
+   ``UhdrEncoder`` / ``UhdrDecoder`` call in turns (medians of 3 after a
+   warm-up);
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -447,12 +462,26 @@ def main() -> int:
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
             ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB),
             ("wire", wk.WIRE_LIB))
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    from libultrahdr_tpu_torch.capi import build as capi_build
+
+    def build_capi():
+        """The C ABI shim linked against libpython and the two C programs
+        on it (g++ / gcc)."""
+        shim = capi_build.build_shim(linked=True)
+        return shim, capi_build.build_program("test_capi", shim), \
+            capi_build.build_program("capi_roundtrip", shim)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        capi_fut = pool.submit(build_capi)
+        inproc_fut = pool.submit(capi_build.build_shim, linked=False)
         for f in [pool.submit(native.get_lib)] + [
                 pool.submit(lib.build) for _, lib in libs]:
             f.result()
+        capi_shim, capi_test_exe, capi_roundtrip_exe = capi_fut.result()
+        capi_inproc_shim = inproc_fut.result()
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the five "
-        "kernel libraries (nvcc sm_90a) and the host C++, in parallel")
+        "kernel libraries (nvcc sm_90a), the host C++ and the C ABI shim "
+        "(two variants) with its C programs, in parallel")
     for kname, lib in libs:
         log(f"phase 2 {kname} kernel: {lib.build_seconds:.1f} s | "
             + " | ".join(ptxas_report(lib.build_log)))
@@ -3154,6 +3183,172 @@ def main() -> int:
             f"in {raw_down:.2f} ms (.cpu()) | {card}")
     del buf_d, payload, packed, wire_buf, yy, xx, smooth
 
+    # ---- phase 19: the C ABI on the card ----------------------------------
+    # UHDR_TPU_TORCH_DEVICE unset: every codec of the shim on the card.
+    # (a) stand-alone C programs on the shim linked against libpython, each
+    # a process of its own; (b) the shim built for a running interpreter,
+    # loaded here with ctypes.CDLL, whose launches this process counts
+    import sysconfig
+    import tempfile
+    from libultrahdr_tpu_torch.capi import abi as capi_abi
+    if os.environ.get("UHDR_TPU_TORCH_DEVICE"):
+        raise AssertionError("UHDR_TPU_TORCH_DEVICE is set: the C ABI's "
+                             "codecs must run on their default device")
+    log(f"phase 19 Python {sys.version.split()[0]} at {sys.prefix}: "
+        f"Py_ENABLE_SHARED {sysconfig.get_config_var('Py_ENABLE_SHARED')}, "
+        f"LDLIBRARY {sysconfig.get_config_var('LDLIBRARY')}, LIBDIR "
+        f"{sysconfig.get_config_var('LIBDIR')}; shims {capi_shim.name} "
+        f"(linked), {capi_inproc_shim.name} (for ctypes.CDLL)")
+    torch.cuda.empty_cache()
+    c_env = capi_build.embed_env()
+    tmp19 = tempfile.TemporaryDirectory()
+    d19 = pathlib.Path(tmp19.name)
+    (d19 / "in.p010").write_bytes(p010_planes[0].tobytes()
+                                  + p010_planes[1].tobytes())
+    r = subprocess.run([str(capi_test_exe)], env=c_env, capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0 or "capi round-trip OK" not in r.stdout:
+        raise AssertionError(f"test_capi: exit {r.returncode}\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
+    log(f"phase 19a test_capi.c (64x48 walkthrough) on the card: exit 0, "
+        f"{r.stdout.strip()} | {card}")
+    first_call = {}
+    for cfg, kw in configs.items():
+        threads = 2 if cfg == "default" else 1
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [str(capi_roundtrip_exe), str(d19 / "in.p010"), str(w), str(h),
+             str(kw["scale"]), str(int(kw["multichannel"])), "95",
+             str(d19 / cfg), str(threads)],
+            env=c_env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"capi_roundtrip {cfg}: exit {r.returncode}"
+                                 f"\n{r.stdout}\n{r.stderr[-4000:]}")
+        steps = {k: float(v) for k, v in
+                 re.findall(r"^ms (\S+) ([0-9.]+)$", r.stdout, re.M)}
+        files = [d19 / f"{cfg}.jpg"] + [d19 / f"{cfg}.t{i}.jpg"
+                                         for i in range(threads)
+                                         if threads > 1]
+        if any(f.read_bytes() != outputs[cfg][0] for f in files):
+            raise AssertionError(f"capi_roundtrip {cfg}: a file != phase 4's "
+                                 "UhdrEncoder file")
+        for ct, tag in ((CT.HLG, "hlg"), (CT.LINEAR, "linear")):
+            if (d19 / f"{cfg}.{tag}.raw").read_bytes() != \
+                    testing.host_packed(decoded[cfg, ct]).tobytes():
+                raise AssertionError(f"capi_roundtrip {cfg}: {tag} decode != "
+                                     "phase 5's UhdrDecoder output")
+        first_call[cfg] = steps
+        log(f"phase 19a capi_roundtrip {cfg} (a new process, {threads} "
+            f"encoding thread(s) first): {len(files)} file(s) == phase 4's "
+            f"UhdrEncoder file, HLG and LINEAR raw == phase 5's outputs; "
+            f"process {wall:.2f} s; host ms: init (interpreter start, import "
+            f"of torch and the port) {steps['init']:.1f}, create_encoder "
+            f"{steps['create_encoder']:.1f}, create_decoder "
+            f"{steps['create_decoder']:.1f}, encode {steps['encode']:.1f} "
+            f"(uhdr_encode {steps['encode.uhdr_encode']:.1f}), decode_hlg "
+            f"{steps['decode_hlg']:.1f}, decode_linear "
+            f"{steps['decode_linear']:.1f} | {card}")
+    tmp19.cleanup()
+
+    # (b) in process
+    c_lib = capi_abi.load(capi_inproc_shim)
+    y_c, uv_c = (np.ascontiguousarray(p) for p in p010_planes)
+    zero_counts()
+    c_files, c_decoded = {}, {}
+    for cfg, kw in configs.items():
+        c_files[cfg] = capi_abi.encode_p010(c_lib, y_c, uv_c, **kw)
+        for ct in (CT.HLG, CT.LINEAR):
+            c_decoded[cfg, ct] = capi_abi.decode(c_lib, c_files[cfg],
+                                                 fmt_of[ct], ct)
+    capi_launches = [read_counts("C ABI in process", {
+        "pack_scan": 2, "apply_gainmap": 4, "apply_linear": 2})]
+    for cfg in configs:
+        if c_files[cfg] != outputs[cfg][0]:
+            raise AssertionError(f"C ABI {cfg}: file != UhdrEncoder's")
+        for ct in (CT.HLG, CT.LINEAR):
+            if not np.array_equal(c_decoded[cfg, ct],
+                                  testing.host_packed(decoded[cfg, ct])):
+                raise AssertionError(f"C ABI {cfg} {ct.name}: decode != "
+                                     "UhdrDecoder's")
+    zero_counts()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(capi_abi.encode_p010, c_lib, y_c, uv_c,
+                            **configs["benchmark"]) for _ in range(2)]
+        c_threads = [f.result() for f in futs]
+    capi_launches.append(read_counts("C ABI from two Python threads",
+                                     {"pack_scan": 2}))
+    if any(f != outputs["benchmark"][0] for f in c_threads):
+        raise AssertionError("C ABI from two threads: a file != UhdrEncoder's")
+    log(f"phase 19b C ABI in process (ctypes.CDLL): both configurations' "
+        f"files == UhdrEncoder's, HLG and LINEAR decodes == UhdrDecoder's, "
+        f"two threads' files == UhdrEncoder's | {card}")
+
+    def direct_encode(kw):
+        enc = port.UhdrEncoder(device="cuda")
+        enc.set_raw_image(img, port.ImgLabel.HDR)
+        enc.set_gainmap_scale_factor(kw["scale"])
+        enc.set_using_multi_channel_gainmap(kw["multichannel"])
+        enc.set_quality(95, port.ImgLabel.BASE)
+        return enc.encode()
+
+    def direct_decode(data, ct):
+        dec = port.UhdrDecoder(device="cuda")
+        dec.set_image(data)
+        dec.set_out_img_format(fmt_of[ct])
+        dec.set_out_color_transfer(ct)
+        return dec.decode().planes[0]
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    capi_ms = {}
+    zero_counts()
+    for cfg, kw in configs.items():
+        data = outputs[cfg][0]
+        routes = [("encode",
+                   lambda kw=kw: capi_abi.encode_p010(c_lib, y_c, uv_c, **kw),
+                   lambda kw=kw: direct_encode(kw))]
+        for ct in (CT.HLG, CT.LINEAR):
+            routes.append((
+                f"{ct.name} decode",
+                lambda data=data, ct=ct: capi_abi.decode(c_lib, data,
+                                                         fmt_of[ct], ct),
+                lambda data=data, ct=ct: direct_decode(data, ct)))
+        for what, c_fn, py_fn in routes:
+            c_fn(), py_fn()      # warm-up
+            c_t, py_t = [], []
+            turns = [(c_fn, c_t), (py_fn, py_t)]
+            for rep in range(3):   # in turns: C, direct, direct, C, C, direct
+                for fn, into in turns if rep % 2 == 0 else turns[::-1]:
+                    into.append(host_ms(fn))
+            capi_ms[cfg, what] = (float(np.median(c_t)),
+                                  float(np.median(py_t)))
+            log(f"phase 19b {cfg} {what}: C ABI {capi_ms[cfg, what][0]:.1f} "
+                f"ms against the direct call {capi_ms[cfg, what][1]:.1f} ms "
+                f"({capi_ms[cfg, what][0] - capi_ms[cfg, what][1]:+.1f}; host "
+                f"clock medians of 3 in turns after a warm-up; C "
+                f"{', '.join(f'{t:.1f}' for t in c_t)}, direct "
+                f"{', '.join(f'{t:.1f}' for t in py_t)}) | {card}")
+    capi_launches.append(read_counts("C ABI beside the direct calls", {
+        "pack_scan": 16, "apply_gainmap": 32, "apply_linear": 16}))
+    capi_total = {k: sum(c[k] for c in capi_launches)
+                  for k in capi_launches[0]}
+    steady = capi_ms["benchmark", "encode"][0]
+    log(f"phase 19 first call in a new process (capi_roundtrip benchmark): "
+        f"interpreter start and import of torch and the port "
+        f"{first_call['benchmark']['init']:.1f} ms, uhdr_create_encoder "
+        f"{first_call['benchmark']['create_encoder']:.1f} ms, the first "
+        f"encode {first_call['benchmark']['encode']:.1f} ms against "
+        f"{steady:.1f} ms warm in process ("
+        f"{first_call['benchmark']['encode'] - steady:+.1f}: CUDA context, "
+        f"the kernel libraries' load, device tables); phase 19 launches "
+        f"{capi_total} | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -3177,23 +3372,27 @@ def main() -> int:
         + batch_launches[CT.LINEAR]["apply_linear"] \
         + general_launches["apply_linear"] + host_launches["apply_linear"] \
         + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches \
-        + wire_dec_launches["apply_linear"]
+        + wire_dec_launches["apply_linear"] + capi_total["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
         + host_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in slice9) \
         + sharded_apply_launches + wire_dec_launches["apply_gainmap"] \
-        - linear
+        + capi_total["apply_gainmap"] - linear
+    later = (wire_dec_launches, capi_total)
     log(f"launches of phases 3-17, no wire knob set: pack_scan "
         f"{before_wires['pack_scan']}, apply HLG/PQ "
-        f"{hlg_pq - wire_dec_launches['apply_gainmap'] + wire_dec_launches['apply_linear']}"
-        f", apply LINEAR {linear - wire_dec_launches['apply_linear']}, scan "
-        f"kernel {before_wires['forward_dct']}; phase 18 added pack_scan "
+        f"{hlg_pq - sum(c['apply_gainmap'] - c['apply_linear'] for c in later)}"
+        f", apply LINEAR {linear - sum(c['apply_linear'] for c in later)}, "
+        f"scan kernel {before_wires['forward_dct']}; phase 18 added pack_scan "
         f"{wire_enc_launches['pack_scan']}, apply "
         f"{wire_dec_launches['apply_gainmap']} (LINEAR "
         f"{wire_dec_launches['apply_linear']}), scan kernel "
-        f"{wire_enc_launches['forward_dct']}")
+        f"{wire_enc_launches['forward_dct']}; phase 19 (the C ABI) added "
+        f"pack_scan {capi_total['pack_scan']}, apply "
+        f"{capi_total['apply_gainmap']} (LINEAR {capi_total['apply_linear']})"
+        f", scan kernel {capi_total['forward_dct']}")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -3201,7 +3400,8 @@ def main() -> int:
                + compressed_launches["pack_scan"] + pipe_launches
                + general_input_launches["pack_scan"]
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
-               + sharded_pack_launches + wire_enc_launches["pack_scan"],
+               + sharded_pack_launches + wire_enc_launches["pack_scan"]
+               + capi_total["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",

@@ -28,25 +28,29 @@ BUILD_DIR = PKG_DIR / "_build"
 
 
 def library_path(name: str, sources: list[pathlib.Path], command: list[str],
-                 key: str = "") -> pathlib.Path:
-    """``_build/<name>_<hash>.so``: the hash of the sources, the command
-    line and `key`."""
+                 key: str = "", suffix: str = ".so") -> pathlib.Path:
+    """``_build/<name>_<hash><suffix>``: the hash of the sources, the
+    command line and `key`."""
     blob = b"".join(s.read_bytes() for s in sources)
     blob += " ".join(command).encode() + key.encode()
-    return BUILD_DIR / f"{name}_{hashlib.sha256(blob).hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}_{hashlib.sha256(blob).hexdigest()[:16]}{suffix}"
 
 
 def build_shared(name: str, sources: list[pathlib.Path],
-                 command: list[str], key: str = "") -> tuple[pathlib.Path, str]:
-    """Compile `sources` into ``_build/<name>_<hash>.so`` unless present.
+                 command: list[str], key: str = "", libs: list[str] = (),
+                 suffix: str = ".so") -> tuple[pathlib.Path, str]:
+    """Compile `sources` into ``_build/<name>_<hash><suffix>`` unless
+    present.
 
     `command` is the compiler invocation without sources and output; the
-    sources and ``-o <tmp>`` are appended.  `key` joins the hash (what the
-    command line does not say, such as the host a ``-march=native`` build
-    is for).  Returns (library path, the compiler's stderr of the build, or
-    "" when the library was cached).  A failed build raises RuntimeError
-    carrying the compiler's output."""
-    so = library_path(name, sources, command, key)
+    sources, `libs` (what the link needs after them) and ``-o <tmp>`` are
+    appended.  `key` joins the hash (what the command line does not say,
+    such as the host a ``-march=native`` build is for, or a header the
+    sources include).  `suffix` "" names an executable.  Returns (library
+    path, the compiler's stderr of the build, or "" when the library was
+    cached).  A failed build raises RuntimeError carrying the compiler's
+    output."""
+    so = library_path(name, sources, command + list(libs), key, suffix)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if so.exists():
         return so, ""
@@ -57,7 +61,8 @@ def build_shared(name: str, sources: list[pathlib.Path],
                 return so, ""
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
-                command + [str(s) for s in sources] + ["-o", str(tmp)],
+                command + [str(s) for s in sources] + list(libs)
+                + ["-o", str(tmp)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(

@@ -540,7 +540,9 @@ PORTED_AS = {"ops/pallas_apply.py": "ops/apply_kernel.py"}
 
 def test_module_coverage():
     """Every .py module of the JAX package has a port module of the same
-    name (or the one PORTED_AS names)."""
+    name (or the one PORTED_AS names), and every C, C++, header and Java
+    source of its bindings (``capi/``, ``java/``) a counterpart of the same
+    name under the port's ``capi/`` and ``java/``."""
     jax_root = REPO / "libultrahdr_tpu"
     port_root = REPO / "libultrahdr_tpu_torch"
     unported = []
@@ -548,6 +550,11 @@ def test_module_coverage():
         rel = f.relative_to(jax_root).as_posix()
         if not (port_root / PORTED_AS.get(rel, rel)).is_file():
             unported.append(rel)
+    bindings = [f.relative_to(REPO).as_posix()
+                for d in ("capi", "java") for f in sorted((REPO / d).rglob("*"))
+                if f.suffix in (".h", ".c", ".cpp", ".java")]
+    assert len(bindings) == 9
+    unported += [rel for rel in bindings if not (port_root / rel).is_file()]
     assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())
 

@@ -236,11 +236,58 @@ def _jax_package_paths(source: str) -> list[str]:
     return found
 
 
+NATIVE_SUFFIXES = (".c", ".cpp", ".cu", ".h", ".java")
+
+
+def _jax_refs_in_native(source: str) -> list[str]:
+    """The includes and string literals of a C, C++, CUDA, header or Java
+    source that reach the JAX side: a module string of the JAX package
+    (``"libultrahdr_tpu.<module>"``; the port's are
+    ``"libultrahdr_tpu_torch.<module>"``) or a path into
+    ``libultrahdr_tpu/``, ``capi/`` or ``java/`` (an entry of the JAX
+    binding's directory, so a JNI class name such as ``java/io/...`` is
+    none)."""
+    import re
+    java_entries = {f.name for f in (REPO / "java").iterdir()}
+    found = []
+    for m in re.finditer(r'^[ \t]*#[ \t]*include[ \t]*[<"]([^>"]+)[>"]'
+                         r'|"((?:[^"\\\n]|\\.)*)"', source, re.M):
+        text = m.group(1) if m.group(1) is not None else m.group(2)
+        parts = [p for p in text.replace("\\", "/").split("/")
+                 if p not in ("", ".", "..")]
+        if ("libultrahdr_tpu." in text or "libultrahdr_tpu/" in text
+                or "libultrahdr_tpu" in parts
+                or parts[:1] == ["capi"] and len(parts) > 1
+                or parts[:1] == ["java"] and len(parts) > 1
+                and parts[1] in java_entries):
+            found.append(m.group(0))
+    return found
+
+
+def test_import_guard_refuses_jax_references_in_native_sources():
+    """The native-source half of the guard below refuses what would reach
+    the JAX package from C, C++ or Java and passes the port's own."""
+    for bad in ('g = PyImport_ImportModule("libultrahdr_tpu.capi_bridge");',
+                '#include "../../capi/ultrahdr_tpu.h"',
+                '#include <libultrahdr_tpu/jpeg/_native/jpeg_entropy.cpp>',
+                'cmd = "-I" "../java/jni/stub";',
+                'const char* p = "./libultrahdr_tpu/fused.py";',
+                'String m = "libultrahdr_tpu.api";'):
+        assert _jax_refs_in_native(bad), bad
+    for good in ('g = PyImport_ImportModule("libultrahdr_tpu_torch.'
+                 'capi_bridge");',
+                 '#include "ultrahdr_tpu.h"', '#include <jni.h>',
+                 'jclass c = env->FindClass("java/io/IOException");',
+                 '// the JAX package (libultrahdr_tpu/fused.py) and capi/',
+                 'System.loadLibrary("uhdr_tpu_torch_jni");'):
+        assert not _jax_refs_in_native(good), good
+
+
 def test_no_jax_import_in_port_sources():
     """No port module or root script of the port imports jax or the JAX
     package, or builds a filesystem path into the JAX package (the port
-    keeps its own copies, the host C++ included); no port C++/CUDA source
-    includes one."""
+    keeps its own copies, the host C++ included); no port C, C++, CUDA,
+    header or Java source reaches the JAX side (``_jax_refs_in_native``)."""
     scripts = [REPO / n for n in ("chip_smoke.py", "profile_decode.py",
                                   "profile_encode.py", "profile_throughput.py",
                                   "profile_variants.py")]
@@ -252,11 +299,12 @@ def test_no_jax_import_in_port_sources():
             assert "libultrahdr_tpu." not in s or not s.startswith(
                 ("import", "from")), (f, s)
         assert not _jax_package_paths(text), (f, _jax_package_paths(text))
-    csrc = REPO / "libultrahdr_tpu_torch" / "csrc"
-    for f in [*csrc.rglob("*.cu"), *csrc.rglob("*.cpp")]:
-        for line in f.read_text().splitlines():
-            assert not (line.startswith("#include")
-                        and "libultrahdr_tpu/" in line), (f, line)
+    native = [f for f in (REPO / "libultrahdr_tpu_torch").rglob("*")
+              if f.suffix in NATIVE_SUFFIXES]
+    assert {f.suffix for f in native} == set(NATIVE_SUFFIXES)
+    for f in native:
+        assert not _jax_refs_in_native(f.read_text()), (
+            f, _jax_refs_in_native(f.read_text()))
     # the check refuses the path into the JAX C++ the port once compiled
     assert _jax_package_paths(
         'SRC = PKG_DIR.parent / "libultrahdr_tpu" / "jpeg" / "_native"')

@@ -195,6 +195,26 @@ held against the plain composition on its own inputs:
    own handles, equal files; each request beside the direct
    ``UhdrEncoder`` / ``UhdrDecoder`` call in turns (medians of 3 after a
    warm-up);
+20. the hardening gates: (a) ``tools/sanitize_kernels.py`` (every kernel
+   through its wrapper on phase 3's and 18a's edge cases, and memcheck's
+   and the guards' also at the 4K default shapes, each output torch.equal
+   to its plain version) in children under ``compute-sanitizer`` (from
+   nvcc's ``bin/``) with memcheck, racecheck, synccheck and initcheck,
+   PyTorch's caching allocator off: a tool's report of any error, a child's
+   failure or a missing binary fails the phase; a tool that refuses the
+   device ("Device not supported", before any kernel runs) is printed as
+   refused, and then the guard runs stand in for it: the guard-page
+   allocator (``tools/guard_alloc.cpp``: an unmapped granule after, then
+   before, every tensor, new memory filled with 0xA5, then 0x5A) and eight
+   runs of each small case beside a busy stream, each child's per-kernel
+   cases, launches and seconds printed; (b) ``fuzz/differential.py`` in a
+   child: 2,000 seeded mutants of small CPU-encoded JPEG_R files decoded
+   through ``UhdrDecoder(device="cuda")`` and on the CPU to HLG and
+   LINEAR, the same verdict (an output or a coded ``UhdrError``; anything
+   else, a CUDA error above all, fails) and outputs within
+   ``testing.check_decoded_close``; prints accepted, rejected and ms a
+   mutant, adds the child's apply launches to the records, then decodes
+   phase 4's two files again, equal to phase 5's outputs;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -3349,6 +3369,161 @@ def main() -> int:
         f"the kernel libraries' load, device tables); phase 19 launches "
         f"{capi_total} | {card}")
 
+    # ---- phase 20: the hardening gates --------------------------------------
+    # 20a: every kernel through its wrapper, == its plain version, in
+    # children: under compute-sanitizer's four tools (PyTorch's caching
+    # allocator off, so that each tensor is an allocation the tool can
+    # bound), then under the guard-page allocator (tools/guard_alloc.cpp:
+    # an unmapped granule after, then before, every tensor, new memory
+    # filled with 0xA5, then 0x5A) and eight runs a case beside a busy
+    # stream; 20b: the card's decode against the CPU's on 2,000 seeded
+    # mutants (fuzz/differential.py, in a child), then phase 4's files
+    # decoded again in this process
+    from libultrahdr_tpu_torch import _buildlib
+    from libultrahdr_tpu_torch.fuzz import differential
+    from libultrahdr_tpu_torch.tools import sanitize_kernels as sk
+    t20 = time.perf_counter()
+    sanitizer = pathlib.Path(_buildlib.nvcc()).resolve().parent \
+        / "compute-sanitizer"
+    if not sanitizer.is_file():
+        raise AssertionError(f"no compute-sanitizer beside nvcc: {sanitizer}")
+    kmod = [sys.executable, "-m",
+            "libultrahdr_tpu_torch.tools.sanitize_kernels"]
+    tmp20 = tempfile.TemporaryDirectory()
+
+    def children(runs: dict) -> dict:
+        """Start every child of `runs` (name -> (argv, env)) at once, each
+        writing to a file of its own; (exit code, output, seconds) each."""
+        procs = {}
+        for i, (what, (argv, env)) in enumerate(runs.items()):
+            out = open(pathlib.Path(tmp20.name) / f"{i}.log", "w+")
+            proc = subprocess.Popen(argv, env=env, stdout=out, cwd=HERE,
+                                    stderr=subprocess.STDOUT)
+            procs[what] = (proc, out, time.perf_counter())
+        done = {}
+        while len(done) < len(procs):
+            for what, (proc, out, t0) in procs.items():
+                if what in done:
+                    continue
+                if proc.poll() is None and time.perf_counter() - t0 > 600:
+                    proc.kill()
+                    proc.wait()
+                if proc.poll() is not None:
+                    out.seek(0)
+                    done[what] = (proc.returncode, out.read(),
+                                  time.perf_counter() - t0)
+                    out.close()
+            time.sleep(0.05)
+        return done
+
+    def kernel_json(what, rc, text) -> dict:
+        """The child's last line: its per-kernel record; every kernel
+        launched and == plain, else the phase fails."""
+        lines = text.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            rec = None
+        if rc != 0 or rec is None or any(
+                st["launches"] == 0 for st in rec["kernels"].values()):
+            raise AssertionError(f"phase 20a {what}: exit {rc}\n"
+                                 + "\n".join(lines[-40:]))
+        return rec
+
+    san_env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    san_runs = children({t: ([str(sanitizer), "--tool", t, "--error-exitcode",
+                              "1", *kmod, "--tool", t], san_env)
+                         for t in sk.TOOLS})
+    refused = []
+    for tool, (rc, text, secs) in san_runs.items():
+        if "Error: Device not supported" in text:
+            # the tool's own refusal, before any kernel ran: recorded, and
+            # the guard runs below stand in for it
+            refused.append(tool)
+            first = [ln for ln in text.splitlines()
+                     if ln.startswith("=") and ln.strip("= ")][:2]
+            log(f"phase 20a compute-sanitizer --tool {tool}: REFUSED the "
+                f"device, no kernel ran under it (exit {rc}, {secs:.1f} s): "
+                f"{' | '.join(first)} | {card}")
+            continue
+        summary = re.findall(r"(?:ERROR|RACECHECK) SUMMARY: .*", text)
+        errors = sum(int(a or b) for a, b in re.findall(
+            r"ERROR SUMMARY: (\d+) error|\((\d+) errors?,", text))
+        rec = kernel_json(f"compute-sanitizer --tool {tool}", rc, text)
+        if not summary or errors:
+            raise AssertionError(f"phase 20a compute-sanitizer --tool {tool}:"
+                                 f" {summary}\n{text[-6000:]}")
+        log(f"phase 20a compute-sanitizer --tool {tool}: {summary[-1]}, "
+            f"{secs:.1f} s, {rec['shapes']} shapes | {card}")
+        for k, st in rec["kernels"].items():
+            log(f"phase 20a   {tool} {k}: {st['cases']} cases, "
+                f"{st['launches']} launches, 0 errors, {st['seconds']:.2f} s, "
+                "== plain")
+    guard_runs = children({
+        "guard right 0xA5": ([*kmod, "--guard", "right", "--fill", "0xA5"],
+                             dict(os.environ)),
+        "guard left 0x5A": ([*kmod, "--guard", "left", "--fill", "0x5A"],
+                            dict(os.environ)),
+        "repeat 8": ([*kmod, "--repeat", "8"], dict(os.environ))})
+    for what, (rc, text, secs) in guard_runs.items():
+        rec = kernel_json(what, rc, text)
+        extra = f", {rec['guard']['allocations']} guarded allocations" \
+            if "guard" in rec else ""
+        log(f"phase 20a {what}: exit 0, no fault, {rec['shapes']} shapes, "
+            f"{secs:.1f} s{extra} | {card}")
+        for k, st in rec["kernels"].items():
+            log(f"phase 20a   {what} {k}: {st['cases']} cases, "
+                f"{st['launches']} launches, {st['seconds']:.2f} s, == plain")
+    tmp20.cleanup()
+    t20a = time.perf_counter() - t20
+
+    # 20b: the card fuzz
+    zero_counts()
+    t0 = time.perf_counter()
+    fuzz = differential.run(2000, seed=20, device="cuda",
+                            reference_device="cpu", timeout=900)
+    fuzz_wall = time.perf_counter() - t0
+    if not fuzz["ok"]:
+        raise AssertionError(
+            f"phase 20b card fuzz: exit {fuzz['returncode']}, crash on "
+            f"mutant {fuzz['crash']}, faults {fuzz['faults_seen'][:5]}, "
+            f"kept {fuzz['saved']}\n{fuzz.get('stderr', '')}")
+    read_counts("card fuzz (in its child; none here)", {})
+    child_launches = fuzz["launches"]     # per kernel, sanitize_kernels' keys
+    if child_launches["apply_gainmap"] == 0 or any(
+            n for k, n in child_launches.items()
+            if not k.startswith("apply_gainmap")):
+        raise AssertionError(f"phase 20b card fuzz launches {child_launches}")
+    fuzz_launches = {   # read_counts' keys: apply_gainmap counts both
+        "apply_gainmap": child_launches["apply_gainmap"]
+        + child_launches["apply_gainmap_linear"],
+        "apply_linear": child_launches["apply_gainmap_linear"]}
+    log(f"phase 20b card fuzz (fuzz/differential.py, seed 20): "
+        f"{fuzz['execs']} mutants decoded on the card and the CPU to HLG "
+        f"and LINEAR: accepted {fuzz['accepted']}, rejected "
+        f"{fuzz['rejected']} (coded UhdrError on both), 0 faults, no CUDA "
+        f"error; {fuzz['ms_per_mutant']:.2f} ms a mutant (four decodes), "
+        f"child {fuzz['seconds']:.1f} s, {fuzz_wall:.1f} s with its start; "
+        f"launches in the child {child_launches} | {card}")
+    zero_counts()
+    for cfg in configs:
+        for ct in (CT.HLG, CT.PQ, CT.LINEAR):
+            dec = port.UhdrDecoder(device="cuda")
+            dec.set_image(outputs[cfg][0])
+            dec.set_out_color_transfer(ct)
+            dec.set_out_img_format(fmt_of[ct])
+            if not np.array_equal(testing.host_packed(dec.decode().planes[0]),
+                                  testing.host_packed(decoded[cfg, ct])):
+                raise AssertionError(f"phase 20b: {cfg} {ct.name} decode "
+                                     "after the card fuzz != phase 5's")
+    redecode_launches = read_counts("4K decodes after the card fuzz", {
+        "apply_gainmap": 6, "apply_linear": 2})
+    t20_total = time.perf_counter() - t20
+    log(f"phase 20b phase 4's two files decoded again to HLG, PQ and LINEAR"
+        f": == phase 5's outputs, bit for bit; phase 20: {t20_total:.1f} s "
+        f"(20a {t20a:.1f} s, compute-sanitizer refused by {refused or 'none'}"
+        f") | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -3372,15 +3547,17 @@ def main() -> int:
         + batch_launches[CT.LINEAR]["apply_linear"] \
         + general_launches["apply_linear"] + host_launches["apply_linear"] \
         + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches \
-        + wire_dec_launches["apply_linear"] + capi_total["apply_linear"]
+        + wire_dec_launches["apply_linear"] + capi_total["apply_linear"] \
+        + fuzz_launches["apply_linear"] + redecode_launches["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
         + host_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in slice9) \
         + sharded_apply_launches + wire_dec_launches["apply_gainmap"] \
-        + capi_total["apply_gainmap"] - linear
-    later = (wire_dec_launches, capi_total)
+        + capi_total["apply_gainmap"] + fuzz_launches["apply_gainmap"] \
+        + redecode_launches["apply_gainmap"] - linear
+    later = (wire_dec_launches, capi_total, fuzz_launches, redecode_launches)
     log(f"launches of phases 3-17, no wire knob set: pack_scan "
         f"{before_wires['pack_scan']}, apply HLG/PQ "
         f"{hlg_pq - sum(c['apply_gainmap'] - c['apply_linear'] for c in later)}"
@@ -3392,7 +3569,10 @@ def main() -> int:
         f"{wire_enc_launches['forward_dct']}; phase 19 (the C ABI) added "
         f"pack_scan {capi_total['pack_scan']}, apply "
         f"{capi_total['apply_gainmap']} (LINEAR {capi_total['apply_linear']})"
-        f", scan kernel {capi_total['forward_dct']}")
+        f", scan kernel {capi_total['forward_dct']}; phase 20 (the card "
+        f"fuzz and the decodes after it) added apply "
+        f"{sum(c['apply_gainmap'] for c in later[2:])} (LINEAR "
+        f"{sum(c['apply_linear'] for c in later[2:])})")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]

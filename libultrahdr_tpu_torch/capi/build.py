@@ -18,6 +18,12 @@ A stand-alone program embeds an interpreter that does not know the calling
 one's ``sys.path`` (a venv's site-packages among it): run it with
 ``embed_env()``.  It runs every codec on the card unless
 ``UHDR_TPU_TORCH_DEVICE`` names another torch device.
+
+``UHDR_CAPI_SANITIZE=1`` (the JAX package's knob) builds the shims and the
+C programs with ASan and UBSan (``-O1 -g -fsanitize=address,undefined
+-fno-sanitize-recover=all``) under names of their own (``*_asan``); a
+program links the ASan runtime itself, so the sanitized shim loads in it
+(``tools/sanitize_replay.py`` runs them).
 """
 
 from __future__ import annotations
@@ -51,26 +57,39 @@ def _header_key() -> str:
     return hashlib.sha256(HEADER.read_bytes()).hexdigest()
 
 
+SANITIZE_FLAGS = ["-O1", "-g", "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all"]
+
+
+def sanitize() -> bool:
+    """UHDR_CAPI_SANITIZE=1: the ASan + UBSan builds."""
+    return os.environ.get("UHDR_CAPI_SANITIZE") == "1"
+
+
 def build_shim(linked: bool = True) -> pathlib.Path:
     """The shim library; `linked` selects the libpython-linked variant."""
     cflags, ldflags = python_embed_flags()
+    name = "libuhdr_tpu_torch" if linked else "libuhdr_tpu_torch_inproc"
+    opt = SANITIZE_FLAGS if sanitize() else ["-O2"]
     so, _ = build_shared(
-        "libuhdr_tpu_torch" if linked else "libuhdr_tpu_torch_inproc",
+        name + ("_asan" if sanitize() else ""),
         [CAPI_DIR / "uhdr_capi.cpp"],
-        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-Wall", "-Werror",
+        ["g++", *opt, "-shared", "-fPIC", "-std=c++17", "-Wall", "-Werror",
          f"-I{CAPI_DIR}", *cflags],
         key=_header_key(), libs=ldflags if linked else [])
     return so
 
 
-def build_program(name: str, shim: pathlib.Path | None = None
-                  ) -> pathlib.Path:
-    """``<name>.c`` of this directory as an executable linked against the
-    libpython-linked shim (built first unless given)."""
+def build_program(name: str, shim: pathlib.Path | None = None,
+                  source: pathlib.Path | None = None) -> pathlib.Path:
+    """``<name>.c`` of this directory (or `source`) as an executable linked
+    against the libpython-linked shim (built first unless given)."""
     shim = shim or build_shim(linked=True)
+    opt = SANITIZE_FLAGS if sanitize() else ["-O1"]
     exe, _ = build_shared(
-        name, [CAPI_DIR / f"{name}.c"],
-        ["gcc", "-O1", "-pthread", "-Wall", "-Werror", f"-I{CAPI_DIR}"],
+        name + ("_asan" if sanitize() else ""),
+        [source or CAPI_DIR / f"{name}.c"],
+        ["gcc", *opt, "-pthread", "-Wall", "-Werror", f"-I{CAPI_DIR}"],
         key=_header_key(), libs=[str(shim), f"-Wl,-rpath,{shim.parent}"],
         suffix="")
     return exe

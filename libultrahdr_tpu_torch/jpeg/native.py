@@ -54,6 +54,13 @@ _SRCS = [_SRC_DIR / "jpeg_entropy.cpp", _SRC_DIR / "host_decode.cpp"]
 # the JAX package's flags (libultrahdr_tpu/jpeg/native.py)
 _FLAGS = ["-O3", "-march=native", "-fno-math-errno", "-shared", "-fPIC",
           "-std=c++17"]
+# UHDR_TPU_SANITIZE=1: the JAX package's ASan + UBSan build, under a name
+# of its own; a process loads it only with libasan preloaded
+# (tools/sanitize_replay.py arranges that)
+_SANITIZE_FLAGS = ["-O1", "-g", "-march=native",
+                   "-fsanitize=address,undefined",
+                   "-fno-sanitize-recover=all", "-shared", "-fPIC",
+                   "-std=c++17"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -72,10 +79,21 @@ def cxx() -> str:
     return os.environ.get("UHDR_TPU_CXX", "g++")
 
 
+def sanitize() -> bool:
+    """UHDR_TPU_SANITIZE=1 (the JAX package's knob): build and load the
+    ASan + UBSan variant."""
+    return os.environ.get("UHDR_TPU_SANITIZE") == "1"
+
+
 def build_args() -> tuple:
     """The host library's (name, sources, command, key) for
-    ``_buildlib.build_shared``: the key is the host's ``_host_target``."""
+    ``_buildlib.build_shared``: the key is the host's ``_host_target``.
+    With ``sanitize()`` the library is ``jpeg_entropy_asan`` built with
+    ``-O1 -g -fsanitize=address,undefined -fno-sanitize-recover=all``."""
     compiler = cxx()
+    if sanitize():
+        return ("jpeg_entropy_asan", _SRCS, [compiler, *_SANITIZE_FLAGS],
+                _host_target(compiler))
     return ("jpeg_entropy", _SRCS, [compiler, *_FLAGS],
             _host_target(compiler))
 

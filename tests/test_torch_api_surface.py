@@ -538,11 +538,20 @@ def test_public_names_superset_of_jax():
 PORTED_AS = {"ops/pallas_apply.py": "ops/apply_kernel.py"}
 
 
+# the JAX repository's hardening tools and their port counterparts
+HARDENING_TOOLS = {"fuzz/fuzz_parsers.py": "fuzz/fuzz_parsers.py",
+                   "fuzz/differential.py": "fuzz/differential.py",
+                   "tools/sanitize_replay.py": "tools/sanitize_replay.py",
+                   "tools/_capi_asan_smoke.c": "tools/capi_asan_smoke.c"}
+
+
 def test_module_coverage():
     """Every .py module of the JAX package has a port module of the same
-    name (or the one PORTED_AS names), and every C, C++, header and Java
+    name (or the one PORTED_AS names), every C, C++, header and Java
     source of its bindings (``capi/``, ``java/``) a counterpart of the same
-    name under the port's ``capi/`` and ``java/``."""
+    name under the port's ``capi/`` and ``java/``, and the hardening tools
+    (the guided fuzzer, the differential fuzzer, the sanitizer replay and
+    its C smoke) one under the port's ``fuzz/`` and ``tools/``."""
     jax_root = REPO / "libultrahdr_tpu"
     port_root = REPO / "libultrahdr_tpu_torch"
     unported = []
@@ -555,6 +564,9 @@ def test_module_coverage():
                 if f.suffix in (".h", ".c", ".cpp", ".java")]
     assert len(bindings) == 9
     unported += [rel for rel in bindings if not (port_root / rel).is_file()]
+    assert all((REPO / rel).is_file() for rel in HARDENING_TOOLS)
+    unported += [rel for rel, port_rel in HARDENING_TOOLS.items()
+                 if not (port_root / port_rel).is_file()]
     assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--previous-wire-kernel PATH]
 
-Drives the port's paths at 3840x2160: the API-0 encode of P010 (one
+(PATH: a copy of the parent commit's ``csrc/wire_kernel.cu`` made outside
+the checkout, whose two kernels phase 18d then times beside the current
+ones.)  Drives the port's paths at 3840x2160: the API-0 encode of P010 (one
 request at a time and pipelined), RGBA1010102 and RGBAF16 input through
 ``libultrahdr_tpu_torch.UhdrEncoder(device="cuda")`` and of YUV444_10 input
 through ``JpegR(device="cuda").encode_api0``, the API-1 encode (raw HDR +
@@ -166,7 +168,10 @@ held against the plain composition on its own inputs:
    versions (torch.equal) on edge cases (fixed rungs of 2-8 bits, vw widths
    0-15, sample counts that are no multiple of 32, a payload shorter than
    its offsets; both download formats at 3, 4, 6 and 8 bits, escapes at the
-   first and last sample, counts above cap); 18b 4K encodes with
+   first and last sample, counts above cap) and at the seams of the
+   kernels' CTA runs and tiles (``testing.unslice_edge_cases``,
+   ``testing.down_pack_edge_cases``, each input at its alignment); 18b 4K
+   encodes with
    ``UHDR_TPU_WIRE`` = auto, vw, 2d5, 1d7 (P010), auto (RGBA1010102,
    RGBAF16) and ``UHDR_TPU_WIRE_API1`` = auto, h4s3 (API-1, both presets),
    both configurations, each file byte-identical to the raw route's of
@@ -178,8 +183,13 @@ held against the plain composition on its own inputs:
    equal to phase 5's raw output, and phase 8's batch decodes over the
    coefficient wire equal to phase 8's per-image outputs; each path's wire
    kernel launches as its wires imply; 18d times, each route beside raw in
-   turns (host clock medians: request, host pack, upload; the kernels by
-   CUDA events beside their bounds; the download against ``.cpu()``);
+   turns (host clock medians: request, host pack, upload; the download
+   against ``.cpu()``) and the kernels by CUDA events beside their bounds
+   (the un-slice on the P010 vw wire, an RGBA1010102 channel's 4-bit rung
+   and the i4 coefficient rung of the luma plane; the download pack on the
+   decoded and on smooth 4K outputs, HLG 4 bits and LINEAR 8 bits, its
+   three launches split by ``torch.profiler``), each alone in turns with
+   the previous design when ``--previous-wire-kernel`` names it;
 19. the C ABI (``libultrahdr_tpu_torch/capi/ultrahdr_tpu.h``) on the card,
    ``UHDR_TPU_TORCH_DEVICE`` unset: (a) the walkthrough ``test_capi.c`` and
    ``capi_roundtrip`` of phase 4's 4K P010 in both configurations (the
@@ -354,6 +364,52 @@ def ptxas_report(build_log: str) -> list[str]:
     return out
 
 
+def previous_wire_kernels(source: pathlib.Path):
+    """The previous design of the two wire kernels, built from `source` (a
+    copy of the parent commit's ``csrc/wire_kernel.cu`` made outside the
+    checkout, which holds only the current one) into ``_build/``: (unslice,
+    down_pack), callables with the current wrappers' arguments and results
+    that launch it on the current stream.  That design's download pack
+    takes an int32 scratch of three counts a CTA of 8,192 samples."""
+    import ctypes
+    import torch
+    from libultrahdr_tpu_torch import _buildlib
+    from libultrahdr_tpu_torch.ops import wire_kernel as wk
+    lib, _, _ = _buildlib.build_cuda("wire_kernel_previous", source)
+    for fn, argtypes in wk.WIRE_LIB.signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+
+    def stream(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def unslice(payload, n, *, bits=0, widths=None, offsets=None):
+        g = -(-n // 32) if widths is None else widths.numel()
+        out = torch.empty(n, dtype=torch.int32, device=payload.device)
+        _buildlib.check_launch(lib, lib.uhdr_wire_unslice(
+            payload.data_ptr(), payload.numel(),
+            None if widths is None else widths.data_ptr(),
+            None if widths is None else offsets.data_ptr(), int(bits), g, n,
+            out.data_ptr(), stream(payload.device)), "previous unslice")
+        return out
+
+    def down_pack(packed, *, bits, cap=wk.DOWN_ESC, base=512):
+        h, w = packed.shape[:2]
+        g = -(-(h * w) // 32)
+        dev = packed.device
+        wire = torch.empty(3 * (g * bits + 2 * cap) + 3, dtype=torch.int32,
+                           device=dev)
+        scratch = torch.empty(3 * max(1, -(-g * 32 // 8192)),
+                              dtype=torch.int32, device=dev)
+        _buildlib.check_launch(lib, lib.uhdr_down_pack(
+            packed.data_ptr(), int(packed.dim() == 3), h, w, int(bits),
+            int(cap), int(base), wire.data_ptr(), scratch.data_ptr(),
+            stream(dev)), "previous down pack")
+        return wire
+
+    return unslice, down_pack
+
+
 def bit_identical(got, want, what: str) -> int:
     """Hold a kernel's packed output against its plain version on the same
     card: 0 when the two are bit-identical, else AssertionError."""
@@ -369,7 +425,17 @@ def bit_identical(got, want, what: str) -> int:
     return 0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--previous-wire-kernel", type=pathlib.Path,
+                    help="a copy of the parent commit's "
+                         "libultrahdr_tpu_torch/csrc/wire_kernel.cu, made "
+                         "outside the checkout: phase 18d times its two "
+                         "kernels beside the current ones")
+    args = ap.parse_args(argv)
+    previous_wire_kernel = (args.previous_wire_kernel.resolve()
+                            if args.previous_wire_kernel else None)
     import numpy as np
     import torch
 
@@ -2829,13 +2895,42 @@ def main() -> int:
                 n_cases += 1
     if not over_cap:
         raise AssertionError("down pack edge cases: no count above cap")
+    # the seams of the kernels' CTA runs and tiles, each input placed at its
+    # alignment (the staged spans' shifts)
+    n_seams = 0
+    for name_, pay, n, bits, wid, offs, align in \
+            testing.unslice_edge_cases():
+        pay_t = testing.aligned_tensor(pay, align, dev)
+        kw_ = dict(bits=bits)
+        if wid is not None:
+            wid_t = torch.from_numpy(wid).to(dev)
+            kw_ = dict(widths=wid_t, offsets=(
+                torch.cumsum(wid_t, 0, dtype=torch.int32) - wid_t
+                if offs is None else torch.from_numpy(offs).to(dev)))
+        tensors_equal((wk.unslice(pay_t, n, **kw_),),
+                      (wk.unslice_plain(pay_t, n, **kw_),),
+                      f"unslice, {name_}")
+        n_seams += 1
+    for name_, packed, bits, cap, align in testing.down_pack_edge_cases():
+        packed_t = testing.aligned_tensor(packed, align, dev)
+        tensors_equal((wk.down_pack(packed_t, bits=bits, cap=cap),),
+                      (wk.down_pack_plain(packed_t, bits=bits, cap=cap),),
+                      f"down pack, {name_}")
+        n_seams += 1
+    n_cases += n_seams
     torch.cuda.synchronize()
     log(f"phase 18a wire kernels == plain (torch.equal) on {n_cases} edge "
         f"cases: unslice at fixed 2-8 bits and vw widths 0-15 (0 and 12 "
         f"groups, n % 32 != 0, a payload shorter than its offsets), the "
         f"download pack of RGBA1010102 and RGBAF16 at 3, 4, 6 and 8 bits "
         f"(escapes at the first and last sample; {over_cap} cases with "
-        f"counts above cap) | {card}")
+        f"counts above cap), and {n_seams} at the seams of the kernels' "
+        f"CTA runs and tiles (testing.unslice_edge_cases, "
+        f"down_pack_edge_cases: runs ending mid-span, each alignment, the "
+        f"clamp at the payload's end, widths 0 and 12, offsets that are no "
+        f"prefix sum, 1x1, h 1, w 1, rows wider than a tile and than the "
+        f"halo's room, escapes across a tile boundary, cap inside a tile, "
+        f"counts far past cap) | {card}")
 
     def expected_unslice() -> int:
         """Unslice launches of the wires in wire.RODE: one a vw buffer, one
@@ -3078,6 +3173,45 @@ def main() -> int:
                 f"{upload_ms(lambda: fused.upload_planes(raw_arrays, dev)):.2f}"
                 f" ms | {card}")
 
+    # the wire kernels against the previous design (built from the
+    # --previous-wire-kernel source, when given), each alone, in turns:
+    # previous, current, current, previous
+    prev_unslice = prev_down = None
+    if previous_wire_kernel is not None:
+        prev_unslice, prev_down = previous_wire_kernels(previous_wire_kernel)
+
+    def in_turns(current, previous):
+        """(current ms, previous ms) of two launches alone, each twice, in
+        turns; previous None: (current ms twice, None)."""
+        if previous is None:
+            return [testing.launch_ms(current) for _ in range(2)], None
+        a = testing.launch_ms(previous)
+        b = [testing.launch_ms(current), testing.launch_ms(current)]
+        return b, [a, testing.launch_ms(previous)]
+
+    def launch_split(fn, reps=10) -> str:
+        """Device ms of each kernel fn() launches, from torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = []
+        for ev in prof.key_averages():
+            m = re.search(r"::(\w+)(<[^>]*>)?\(", ev.key)
+            if m and ev.count:
+                split.append(f"{m.group(1)} {ev.device_time / 1e3:.4f}")
+        return ", ".join(split) or "no device time recorded"
+
+    def turns_text(cur, prev) -> str:
+        out = f"{cur[0]:.4f} / {cur[1]:.4f} ms alone"
+        if prev is not None:
+            out += (f", the previous design {prev[0]:.4f} / {prev[1]:.4f} ms"
+                    f" in the same turns")
+        return out
+
     # the unslice kernel on the 4K P010 vw wire
     buf_vw, _ = wire.pack_vw_wire(*p010_planes)
     gy, guv, wyw, wuvw = wire._vw_header_words(h, w)
@@ -3104,11 +3238,79 @@ def main() -> int:
                                                offsets=offs), 3)
     unslice_row = dict(ms=u_ms, kernel_ms=u_kernel, plain_ms=u_plain, err=0,
                        bound_ms=u_bound, bound_by=u_by)
+    if prev_unslice is not None:
+        tensors_equal((prev_unslice(payload, n_vw, widths=wa, offsets=offs),),
+                      (wk.unslice_plain(payload, n_vw, widths=wa,
+                                        offsets=offs),),
+                      "previous unslice on the 4K P010 vw wire")
+    u_cur, u_prev = in_turns(
+        lambda: wk.UNSLICE_KERNEL(payload, n_vw, widths=wa, offsets=offs),
+        None if prev_unslice is None else
+        lambda: prev_unslice(payload, n_vw, widths=wa, offsets=offs))
     log(f"phase 18d unslice kernel, the 4K P010 vw wire ({wa.numel()} "
         f"groups, {buf_vw.nbytes / 1e6:.2f} MB): dispatcher {u_ms:.4f} ms, "
         f"kernel alone {u_kernel:.4f} ms, plain {u_plain:.3f} ms (CUDA "
         f"events), bound {u_bound:.4f} ms ({u_by}, {u_bytes / 1e6:.1f} MB), "
-        f"{u_bound / u_kernel:.0%} of it | {card}")
+        f"{u_bound / u_kernel:.0%} of it; {turns_text(u_cur, u_prev)} | "
+        f"{card}")
+    # the fixed rungs at 4K: one RGBA1010102 channel's 4-bit rung and the
+    # i4 coefficient rung of the 4K luma plane (seeded words: the fixed
+    # path's work does not depend on them)
+    for what, n_r, bits_r in (
+            ("the 4-bit rung of one RGBA1010102 channel", h * w, 4),
+            ("the i4 coefficient rung of the luma plane",
+             (h // 8) * (w // 8) * 63, 4)):
+        words_r = rand_words(-(-n_r // 32) * bits_r)
+        got = wk.unslice(words_r, n_r, bits=bits_r)
+        tensors_equal((got,), (wk.unslice_plain(words_r, n_r, bits=bits_r),),
+                      f"unslice on {what}")
+        if prev_unslice is not None:
+            tensors_equal((prev_unslice(words_r, n_r, bits=bits_r),), (got,),
+                          f"previous unslice on {what}")
+        r_bound, r_by = bound(4 * (words_r.numel() + n_r),
+                              3 * 32 * words_r.numel())
+        r_ms = cuda_ms(lambda: wk.unslice(words_r, n_r, bits=bits_r), 20)
+        r_cur, r_prev = in_turns(
+            lambda: wk.UNSLICE_KERNEL(words_r, n_r, bits=bits_r),
+            None if prev_unslice is None else
+            lambda: prev_unslice(words_r, n_r, bits=bits_r))
+        log(f"phase 18d unslice kernel, {what} ({n_r} samples): dispatcher "
+            f"{r_ms:.4f} ms, {turns_text(r_cur, r_prev)}, bound "
+            f"{r_bound:.4f} ms ({r_by}), {r_bound / min(r_cur):.0%} of it | "
+            f"{card}")
+        del words_r, got
+
+    def down_times(packed, bits, what):
+        """The download pack on one 4K output: == plain (and the previous
+        design), dispatcher, alone, in turns with the previous design,
+        plain, bound, the launches' split; logs a line, returns the row."""
+        got = wk.down_pack(packed, bits=bits)
+        tensors_equal((got,), (wk.down_pack_plain(packed, bits=bits),),
+                      f"down pack on {what}")
+        if prev_down is not None:
+            tensors_equal((prev_down(packed, bits=bits),), (got,),
+                          f"previous down pack on {what}")
+        d_bytes = nbytes(packed, got)
+        # operations a sample and channel: the channel (shift, and), the
+        # two differences, code = d + half, the range test (two compares),
+        # the select of half, the escape count; then a shift, an and and a
+        # ballot for each of the code's `bits` bits
+        d_bound, d_by = bound(d_bytes, 3 * h * w * (9 + 3 * bits))
+        d_ms = cuda_ms(lambda: wk.down_pack(packed, bits=bits), 20)
+        d_cur, d_prev = in_turns(
+            lambda: wk.DOWN_PACK_KERNEL(packed, bits=bits),
+            None if prev_down is None else
+            lambda: prev_down(packed, bits=bits))
+        d_plain = cuda_ms(lambda: wk.down_pack_plain(packed, bits=bits), 3)
+        split = launch_split(lambda: wk.DOWN_PACK_KERNEL(packed, bits=bits))
+        log(f"phase 18d download pack kernel, {what} at {bits} bits "
+            f"(escapes {got[-3:].cpu().tolist()}): dispatcher {d_ms:.4f} ms, "
+            f"{turns_text(d_cur, d_prev)}, plain {d_plain:.3f} ms (CUDA "
+            f"events), bound {d_bound:.4f} ms ({d_by}, {d_bytes / 1e6:.1f} "
+            f"MB), {d_bound / min(d_cur):.0%} of it; launches (torch."
+            f"profiler, ms): {split} | {card}")
+        return dict(ms=d_ms, kernel_ms=d_cur[0], plain_ms=d_plain, err=0,
+                    bound_ms=d_bound, bound_by=d_by), got
 
     # decodes: the coefficient wire and the download wire beside raw
     for cfg in configs:
@@ -3144,34 +3346,15 @@ def main() -> int:
             if not np.array_equal(got, testing.host_packed(decoded[cfg, ct])):
                 raise AssertionError(f"download wire {cfg} {ct.name} != raw")
             raw_down = med(lambda: packed.cpu())
-            wire_buf = wk.down_pack(packed, bits=bits)
-            tensors_equal((wire_buf,), (wk.down_pack_plain(packed,
-                                                           bits=bits),),
-                          f"down pack on the 4K {cfg} {ct.name} output")
-            d_bytes = nbytes(packed, wire_buf)
-            # operations a sample and channel: the channel (shift, and), the
-            # two differences, code = d + half, the range test (two
-            # compares), the select of half, the escape count; then a shift,
-            # an and and a ballot for each of the code's `bits` bits
-            d_bound, d_by = bound(d_bytes, 3 * h * w * (9 + 3 * bits))
-            d_ms = cuda_ms(lambda: wk.down_pack(packed, bits=bits), 20)
-            d_kernel = testing.launch_ms(
-                lambda: wk.DOWN_PACK_KERNEL(packed, bits=bits))
-            d_plain = cuda_ms(lambda: wk.down_pack_plain(packed, bits=bits),
-                              3)
+            row, wire_buf = down_times(
+                packed, bits, f"the decoded 4K {cfg} {ct.name} output")
             if cfg == "default" and ct == CT.HLG:
-                down_row = dict(ms=d_ms, kernel_ms=d_kernel, plain_ms=d_plain,
-                                err=0, bound_ms=d_bound, bound_by=d_by)
-            counts = wire_buf[-3:].cpu().tolist()
+                down_row = row
             log(f"phase 18d download wire {cfg} {ct.name} at {bits} bits: "
-                f"{wire_buf.numel() * 4 / 1e6:.2f} MB (escapes {counts}) "
-                f"fetched in {down_ms:.2f} ms against raw "
-                f"{nbytes(packed) / 1e6:.2f} MB in {raw_down:.2f} ms "
-                f"(.cpu(), the default route); the download pack kernel "
-                f"{d_ms:.4f} ms (dispatcher), {d_kernel:.4f} ms alone, plain "
-                f"{d_plain:.3f} ms (CUDA events), bound {d_bound:.4f} ms "
-                f"({d_by}, {d_bytes / 1e6:.1f} MB), "
-                f"{d_bound / d_kernel:.0%} of it | {card}")
+                f"{wire_buf.numel() * 4 / 1e6:.2f} MB (escapes "
+                f"{wire_buf[-3:].cpu().tolist()}) fetched in {down_ms:.2f} ms "
+                f"against raw {nbytes(packed) / 1e6:.2f} MB in "
+                f"{raw_down:.2f} ms (.cpu(), the default route) | {card}")
     # the download wire where it fits: a smooth 4K output (the decodes above
     # overflow every width's escape list and go raw)
     yy, xx = np.mgrid[0:h, 0:w]
@@ -3195,7 +3378,8 @@ def main() -> int:
                                      f"({dict(wire.RODE)})")
             down_ms = med(lambda: fetch(packed, h=h, w=w))
         raw_down = med(lambda: packed.cpu())
-        wire_buf = wk.down_pack(packed, bits=bits)
+        _, wire_buf = down_times(packed, bits,
+                                 f"a smooth 4K {ct.name} output")
         log(f"phase 18d download wire, a smooth 4K {ct.name} output at "
             f"{bits} bits (it fits): {wire_buf.numel() * 4 / 1e6:.2f} MB "
             f"(escapes {wire_buf[-3:].cpu().tolist()}) fetched and unpacked "

@@ -15,7 +15,7 @@ twin.  Each is, as the other kernels of the port:
   for sm_90a at first use into ``_build/``, launched on PyTorch's current
   stream, raising on a refused launch, counting its launches
   (``UNSLICE_KERNEL.launches``, ``DOWN_PACK_KERNEL.launches``: one a call,
-  the download pack's two launches counted as one);
+  the download pack's three launches counted as one);
 - a dispatcher (``unslice``, ``down_pack``): a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, anything else raises.  Nothing
   falls back: a failed build or launch propagates.
@@ -152,6 +152,8 @@ WIRE_LIB = CudaLibrary("wire_kernel", {
                        ctypes.c_int, _PTR, _PTR, _PTR]})
 # samples a CTA of uhdr_down_pack takes (csrc/wire_kernel.cu kTile)
 DOWN_TILE = 8192
+# the kernels index payload words and samples with 32-bit integers
+_MAX_WORDS = 2 ** 31 - 4 * DOWN_TILE
 
 
 def _check(name: str, t: torch.Tensor, dtype, dev, shape=None):
@@ -176,6 +178,9 @@ class _UnsliceKernel:
         if dev.type != "cuda":
             raise ValueError(f"unslice kernel needs CUDA tensors, got {dev}")
         _check("payload", payload, torch.int32, dev)
+        if payload.numel() >= _MAX_WORDS or n >= _MAX_WORDS:
+            raise ValueError(f"unslice kernel: {payload.numel()} words, {n} "
+                             f"samples: too many for 32-bit indices")
         if widths is None:
             g = _groups(n)
             if not 1 <= bits <= 31 or payload.numel() < g * bits:
@@ -201,8 +206,9 @@ class _UnsliceKernel:
 
 
 class _DownPackKernel:
-    """Wrapper of uhdr_down_pack: checks, the wire buffer and the CTA
-    counts' scratch, the two launches, one count a call."""
+    """Wrapper of uhdr_down_pack: checks, the wire buffer and the tiles'
+    scratch, the three launches (words, the counts' scan, escapes), one
+    count a call."""
 
     def __init__(self):
         self.launches = 0
@@ -219,15 +225,22 @@ class _DownPackKernel:
         if f16 and packed.data_ptr() % 8:
             raise ValueError("down-pack kernel: an RGBAF16 output must be "
                              "8-byte aligned")
-        if not 2 <= bits <= 8 or cap < 1:
+        if not 2 <= bits <= 8 or not 1 <= cap < _MAX_WORDS:
             raise ValueError(f"down-pack kernel: bits {bits}, cap {cap}")
+        if h * w * (2 if f16 else 1) >= _MAX_WORDS:
+            raise ValueError(f"down-pack kernel: a {w}x{h} output is too "
+                             f"large for 32-bit indices")
+        if not 0 <= base < (1 << (16 if f16 else 10)):
+            raise ValueError(f"down-pack kernel: base {base} is no sample "
+                             f"of the format")
         lib = WIRE_LIB.build()
         g = _groups(h * w)
         wire = torch.empty(3 * (g * bits + 2 * cap) + 3, dtype=torch.int32,
                            device=dev)
-        blocks = -(-g * 32 // DOWN_TILE)
-        scratch = torch.empty(3 * max(blocks, 1), dtype=torch.int32,
-                              device=dev)
+        # each tile's groups' escape masks, its counts and their prefix sums
+        scratch = torch.empty(3 * -(-h * w // DOWN_TILE) * (DOWN_TILE // 32
+                                                           + 2),
+                              dtype=torch.int32, device=dev)
         check_launch(lib, lib.uhdr_down_pack(
             packed.data_ptr(), int(f16), h, w, int(bits), int(cap),
             int(base), wire.data_ptr(), scratch.data_ptr(),

@@ -19,7 +19,9 @@
   ``apply_gainmap_plain``; ``apply_edge_inputs`` and
   ``pack_worst_case_stream``, the two kernels' edge-case inputs, and
   ``synthetic_slots``, slot inputs of the block pack and the tile pack at
-  any block count;
+  any block count; ``unslice_edge_cases`` and ``down_pack_edge_cases``,
+  the wire kernels' edge cases at the seams of their CTA runs and tiles,
+  placed on the card at their alignment by ``aligned_tensor``;
 - ``launch_ms``, ``pack_kernel_ms``, ``slot_pack_kernel_ms``: a kernel's
   time on the card without its wrapper's host work;
 - ``check_decoded_close``: the contract between two decodes of one file
@@ -464,6 +466,114 @@ def synthetic_slots(n: int, seed: int, dense=()):
     pays = (rs.random_sample(lens.shape) * (1 << lens)).astype(np.int64)
     return (torch.from_numpy(pays.astype(np.uint32).view(np.int32)),
             torch.from_numpy(lens.astype(np.int32)))
+
+
+def _rand_words(rs, n: int) -> np.ndarray:
+    return rs.randint(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+
+
+def unslice_edge_cases(seed: int = 15):
+    """The un-slice kernel's edge cases (``csrc/wire_kernel.cu``: CTA runs
+    of 256 groups, each run's word span staged from a 16-byte aligned
+    middle and a few words at each end): (name, payload (int32), n, bits,
+    widths (int32) or None, offsets (int32) or None, align).  `align` is
+    the payload's word offset in a buffer whose start is 16-byte aligned
+    (the staged span's shift); offsets None means the widths' exclusive
+    prefix sums, as every caller passes them."""
+    rs = np.random.RandomState(seed)
+    out = []
+    wid = rs.randint(0, 13, 300)            # two runs, the second partial
+    live = int(wid.sum())
+    for align in range(4):
+        out.append((f"vw run ends mid-span, align {align}",
+                    _rand_words(rs, live), 32 * 300 - 17, 0, wid, None,
+                    align))
+    wid = rs.randint(0, 13, 40)
+    live = int(wid.sum())
+    out.append(("vw clamp at the payload's end", _rand_words(rs, live - 7),
+                32 * 40, 0, wid, None, 1))
+    out.append(("vw offsets past the payload's end",
+                _rand_words(rs, live // 3), 32 * 40 - 3, 0, wid, None, 2))
+    out.append(("vw widths 0", _rand_words(rs, 1), 32 * 300, 0,
+                np.zeros(300, np.int64), None, 3))
+    out.append(("vw widths 12", _rand_words(rs, 12 * 300), 32 * 300, 0,
+                np.full(300, 12), None, 3))
+    out.append(("vw widths 0 and 12", _rand_words(rs, 12 * 150), 32 * 300,
+                0, np.tile([0, 12], 150), None, 0))
+    wid = rs.randint(0, 13, 300)
+    out.append(("vw offsets no prefix sum (read from device memory)",
+                _rand_words(rs, 20000), 32 * 300, 0, wid,
+                rs.randint(-50, 20050, 300), 1))
+    for bits in (1, 13, 20, 31):
+        n = 32 * 300 + 5
+        out.append((f"fixed {bits} bits over two runs",
+                    _rand_words(rs, -(-n // 32) * bits), n, bits, None, None,
+                    2))
+    return [(name, pay, n, bits,
+             None if w is None else w.astype(np.int32),
+             None if o is None else o.astype(np.int32), align)
+            for name, pay, n, bits, w, o, align in out]
+
+
+def aligned_tensor(arr: np.ndarray, align: int, device) -> torch.Tensor:
+    """`arr` on `device` as a contiguous view that starts `align` 4-byte
+    words past the start of its own allocation (itself 16-byte aligned),
+    the case's alignment for the wire kernels' 16-byte copies."""
+    flat = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(
+        np.int32))
+    buf = torch.empty(align + flat.numel(), dtype=torch.int32, device=device)
+    buf[align:] = flat.to(device)
+    return buf[align:].view(torch.from_numpy(arr[:0]).dtype).reshape(
+        arr.shape)
+
+
+def down_pack_edge_cases(seed: int = 15):
+    """The download pack's edge cases (``csrc/wire_kernel.cu``: tiles of
+    8,192 samples with the w + 1 samples before them as halo): (name,
+    packed output (RGBA1010102 (h, w) int32 or RGBAF16 (h, w, 4) int16),
+    bits, cap, align).  `align` is the output's word offset in a buffer
+    whose start is 16-byte aligned (RGBAF16: 0 or 2)."""
+    rs = np.random.RandomState(seed)
+
+    def chans(h, w, noise, spikes=()):
+        yy, xx = np.mgrid[0:h, 0:w]
+        cs = [(300 + 2 * xx + yy + c * 50
+               + (rs.randint(0, noise, (h, w)) if noise else 0)) % 1024
+              for c in range(3)]
+        for ch in cs:
+            for p in spikes:
+                ch.reshape(-1)[p] = 1023 - ch.reshape(-1)[p]
+        return cs
+
+    def rgba1010102(cs):
+        return (cs[0] | cs[1] << 10 | cs[2] << 20 | 3 << 30).astype(
+            np.uint32).view(np.int32)
+
+    def rgbaf16(cs):
+        h, w = cs[0].shape
+        return np.stack([0x3000 + 16 * c for c in cs]
+                        + [np.full((h, w), 0x3C00)], -1).astype(
+                            np.uint16).view(np.int16)
+
+    straddle = range(8192 - 6, 8192 + 6, 3)
+    out = [("1x1", rgba1010102(chans(1, 1, 0, (0,))), 4, 8192, 0),
+           ("h 1", rgba1010102(chans(1, 300, 400)), 3, 8192, 1),
+           ("w 1", rgba1010102(chans(300, 1, 400)), 4, 8192, 2),
+           ("w 53, f16", rgbaf16(chans(37, 53, 400)), 6, 16, 2),
+           ("rows wider than a tile", rgba1010102(
+               chans(2, 9000, 0, (0, 8999, 9000, 17999))), 4, 8192, 3),
+           ("f16 rows wider than the halo's room", rgbaf16(
+               chans(2, 20000, 0, (0, 19999, 20000, 39999))), 8, 8192, 0),
+           ("escapes straddle a tile boundary", rgba1010102(
+               chans(100, 100, 0, straddle)), 4, 8192, 1),
+           ("cap in the middle of the first tile",
+            rgba1010102(chans(100, 100, 12)), 4, 1000, 0),
+           ("cap in the middle of the second tile",
+            rgba1010102(chans(100, 100, 12)), 4, 2300, 3),
+           ("count far past cap", rgbaf16(chans(100, 100, 400)), 3, 5, 0),
+           ("interior tiles, column-0 escapes", rgba1010102(
+               chans(200, 100, 12, range(8500, 16300, 700))), 4, 8192, 2)]
+    return out
 
 
 def launch_ms(launch, reps: int = 20, before=None) -> float:

@@ -339,6 +339,29 @@ def _wire_cases(dev, big: bool):
                         + [np.full((h_, w_), 0x3C00)], -1).astype(np.uint16)
         return torch.from_numpy(comp.view(np.int16)).to(dev)
 
+    if not big:
+        from .. import testing
+        for name, pay, n, bits, wid, offs, align in \
+                testing.unslice_edge_cases():
+            p = testing.aligned_tensor(pay, align, dev)
+            w_ = o_ = None
+            if wid is not None:
+                w_ = torch.from_numpy(wid).to(dev)
+                o_ = (torch.cumsum(w_, 0, dtype=torch.int32) - w_
+                      if offs is None else torch.from_numpy(offs).to(dev))
+            yield ("wire_unslice", name,
+                   lambda p=p, n=n, b=bits, w=w_, o=o_: wk.unslice(
+                       p, n, bits=b, widths=w, offsets=o),
+                   lambda p=p, n=n, b=bits, w=w_, o=o_: wk.unslice_plain(
+                       p, n, bits=b, widths=w, offsets=o),
+                   tensors_equal)
+        for name, packed, bits, cap, align in testing.down_pack_edge_cases():
+            pt = testing.aligned_tensor(packed, align, dev)
+            yield ("down_pack", name,
+                   lambda p=pt, b=bits, c=cap: wk.down_pack(p, bits=b, cap=c),
+                   lambda p=pt, b=bits, c=cap: wk.down_pack_plain(
+                       p, bits=b, cap=c),
+                   tensors_equal)
     shapes = (((2160, 3840), False, wk.DOWN_ESC),
               ((2160, 3840), True, wk.DOWN_ESC)) if big else (
         ((37, 53), False, wk.DOWN_ESC), ((64, 32), False, wk.DOWN_ESC),

@@ -26,7 +26,14 @@ shipped library into ``_build/variants/``:
   (each sample a function of its position) and no arithmetic (each
   block's columns stored as its coefficients: what the loads, the
   shared-memory transpose, the stores and the DC pass cost without the
-  1,920 products and sums and the 64 divisions).
+  1,920 products and sums and the 64 divisions);
+- wire: the download pack's first launch (``csrc/wire_kernel.cu``
+  ``down_words``) timed only, without its transposes (each channel's
+  packed codes stored as they are), without its pixel loads (each delta a
+  function of the sample's position), without its escape votes, without
+  its staging (coding whatever shared memory holds), and staging alone (no
+  coding): what each part costs.  The shipped download pack's three
+  launches are also split by ``torch.profiler``.
 
 Inputs are a 4K request's own: ``testing.photo_p010(3840, 2160)`` encoded
 with ``UhdrEncoder(device="cuda")`` in the library's default configuration
@@ -64,6 +71,7 @@ from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
 from libultrahdr_tpu_torch.ops import apply as apply_ops
 from libultrahdr_tpu_torch.ops import apply_kernel as ak
 from libultrahdr_tpu_torch.ops import idw
+from libultrahdr_tpu_torch.ops import wire_kernel as wk
 
 W, H = 3840, 2160
 REPS = 20
@@ -130,6 +138,29 @@ VARIANTS = {
              "p.d[v2 * 8 + k]));\n"
              "            const int qv = round_to_int(__fdiv_rn(acc, "
              "q[v2]));", "const int qv = round_to_int(t[v2]);")]}),
+    "wire": (wk, "WIRE_LIB", {
+        TIMING_ONLY + "download pack: no transposes": [
+            ("__shfl_sync(kFull, transpose32(codes[c], lane), src);",
+             "__shfl_sync(kFull, codes[c], src);")],
+        TIMING_ONLY + "download pack: no pixel loads": [
+            ("        Px left = cur_px[32 * s - 1];\n"
+             "        const Px ul = up_px[32 * s - 1];\n"
+             "        if (x == 0) left = ul;\n"
+             "        deltas3(cur_px[32 * s], up_px[32 * s], left, ul, half, "
+             "d);",
+             "        d[0] = (p + x) & 15; d[1] = p & 7; d[2] = x & 3;")],
+        TIMING_ONLY + "download pack: no escape votes": [
+            ("        const uint32_t m = __ballot_sync(kFull, esc);\n"
+             "        if (lane == 0) masks[c][lg] = m;",
+             "        if (esc && lane == 99) masks[c][lg] = 1u;")],
+        TIMING_ONLY + "download pack: no staging": [
+            ("      cp16(&stage[av + 4 * u - w0 + shift], gw + av + 4 * u);",
+             "      {}")],
+        TIMING_ONLY + "download pack: staging alone": [
+            ("  if (p0 >= q.w + 1 && p0 + kTile <= q.n)\n    code_steps",
+             "  if (q.cap < 0)\n    code_steps"),
+            ("  else\n    code_steps<kF16, kHalo, false>",
+             "  else if (q.cap < 0)\n    code_steps<kF16, kHalo, false>")]}),
 }
 
 
@@ -240,8 +271,15 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    pack_ins, apply_ins, slot_ins = inputs(dev)
+    pack_ins, apply_ins, slot_ins = inputs(dev) if set(args.only) - {
+        "wire", "scan"} else (None, {}, {})
     want = {}
+    if "wire" in args.only:
+        # a 4K photographic RGBA1010102 output, HLG's 4 bits
+        wire_in = torch.from_numpy(np.ascontiguousarray(np.asarray(
+            testing.photo_rgba1010102(W, H).planes[0]).view(np.int32))).to(
+                dev)
+        want["wire"] = wk.down_pack_plain(wire_in, bits=4)
     if "pack" in args.only:
         want["pack"] = pk.pack_scan_plain(*pack_ins)
     if "apply" in args.only:
@@ -284,6 +322,22 @@ def main() -> int:
             return {"kernel": testing.pack_kernel_ms(pack_ins),
                     "wrapper": events_ms(lambda: pk.pack_scan(*pack_ins))}
         out = {}
+        if family == "wire":
+            if not name.startswith(TIMING_ONLY) and not torch.equal(
+                    wk.DOWN_PACK_KERNEL(wire_in, bits=4), want["wire"]):
+                raise AssertionError(f"down pack {lib.name} != plain")
+            out["down pack alone"] = testing.launch_ms(
+                lambda: wk.DOWN_PACK_KERNEL(wire_in, bits=4))
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPS):
+                    wk.DOWN_PACK_KERNEL(wire_in, bits=4)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                for k in ("down_words", "down_scan", "down_escapes"):
+                    if f"::{k}" in ev.key and ev.count:
+                        out[k] = ev.device_time / 1e3
+            return out
         if family == "scan":
             for cfg, scans in scan_ins.items():
                 got = dct.scan_inputs(scans)
@@ -343,7 +397,8 @@ def main() -> int:
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "kernel_variants.json").write_text(json.dumps(
-        {"card": card, "blocks": int(pack_ins[0].shape[0]),
+        {"card": card, "blocks": None if pack_ins is None
+         else int(pack_ins[0].shape[0]),
          "slot_pack_blocks": {cfg: int(v[0].shape[0])
                               for cfg, v in slot_ins.items()},
          "ptxas": {f"{family}: {name}": [

@@ -543,6 +543,9 @@ HARDENING_TOOLS = {"fuzz/fuzz_parsers.py": "fuzz/fuzz_parsers.py",
                    "fuzz/differential.py": "fuzz/differential.py",
                    "tools/sanitize_replay.py": "tools/sanitize_replay.py",
                    "tools/_capi_asan_smoke.c": "tools/capi_asan_smoke.c"}
+# the JAX package's profile tools the port has a counterpart of
+PROFILE_TOOLS = {"tools/profile_encode_pipeline.py":
+                 "tools/profile_encode_pipeline.py"}
 
 
 def test_module_coverage():
@@ -551,7 +554,8 @@ def test_module_coverage():
     source of its bindings (``capi/``, ``java/``) a counterpart of the same
     name under the port's ``capi/`` and ``java/``, and the hardening tools
     (the guided fuzzer, the differential fuzzer, the sanitizer replay and
-    its C smoke) one under the port's ``fuzz/`` and ``tools/``."""
+    its C smoke) and the profile tools (the pipelined encode's wire
+    profile) one under the port's ``fuzz/`` and ``tools/``."""
     jax_root = REPO / "libultrahdr_tpu"
     port_root = REPO / "libultrahdr_tpu_torch"
     unported = []
@@ -564,8 +568,9 @@ def test_module_coverage():
                 if f.suffix in (".h", ".c", ".cpp", ".java")]
     assert len(bindings) == 9
     unported += [rel for rel in bindings if not (port_root / rel).is_file()]
-    assert all((REPO / rel).is_file() for rel in HARDENING_TOOLS)
-    unported += [rel for rel, port_rel in HARDENING_TOOLS.items()
+    tools = {**HARDENING_TOOLS, **PROFILE_TOOLS}
+    assert all((REPO / rel).is_file() for rel in tools)
+    unported += [rel for rel, port_rel in tools.items()
                  if not (port_root / port_rel).is_file()]
     assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())

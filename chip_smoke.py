@@ -225,6 +225,14 @@ held against the plain composition on its own inputs:
    ``testing.check_decoded_close``; prints accepted, rejected and ms a
    mutant, adds the child's apply launches to the records, then decodes
    phase 4's two files again, equal to phase 5's outputs;
+21. the benchmark tools in this process: ``tools/benchmarks.py`` (the
+   reference benchmark's matrix: every section at 3840x2160, 3 reps, each
+   row's outputs checked) and ``tools/bench.py`` (the headline pipelined
+   encode, every file == ``encode_api0``, and its extras); each row and the
+   headline printed on a line of its own; any failed check fails the
+   phase, and so does a row whose launches differ from phases 4-5's (one
+   pack and two scan-kernel launches a fused encode, one apply launch an
+   HLG/PQ/LINEAR decode on the card, none on SRGB or the host engine);
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -1923,18 +1931,7 @@ def main(argv=None) -> int:
     # card's decode of the same file and transfer (UhdrDecoder on the card,
     # one apply launch), held to the JAX package's host-vs-device gate:
     # >= 55 dB a channel
-    def psnr_channels(a, b) -> list[float]:
-        a, b = testing.host_packed(a), testing.host_packed(b)
-        if a.dtype == np.uint32:
-            chans = [(testing.codes_1010102(x)[:3].astype(np.float64), 1023.0)
-                     for x in (a, b)]
-        else:
-            chans = [(x[..., :3].view(np.float16).astype(np.float64)
-                      .transpose(2, 0, 1), 10000.0 / 203.0) for x in (a, b)]
-        (ca, peak), (cb, _) = chans
-        mse = ((ca - cb) ** 2).mean(axis=(1, 2))
-        return [float("inf") if m == 0 else float(10 * np.log10(
-            peak ** 2 / m)) for m in mse]
+    from libultrahdr_tpu_torch.tools.benchmarks import channel_psnr
 
     host_launches = {"apply_gainmap": 0, "apply_linear": 0}
     for cfg in configs:
@@ -1961,7 +1958,7 @@ def main(argv=None) -> int:
                                                  ct == CT.LINEAR)})
             for k in host_launches:
                 host_launches[k] += got[k]
-            db = psnr_channels(host_img.planes[0], card_img.planes[0])
+            db = channel_psnr(host_img.planes[0], card_img.planes[0])
             if min(db) < 55.0:
                 raise AssertionError(f"decode_host {cfg} {ct.name}: "
                                      f"{db} dB against the card's decode")
@@ -3708,6 +3705,92 @@ def main(argv=None) -> int:
         f"(20a {t20a:.1f} s, compute-sanitizer refused by {refused or 'none'}"
         f") | {card}")
 
+    # ---- phase 21: the benchmark tools ------------------------------------
+    # tools/benchmarks.py (every section at 3840x2160, 3 reps) and
+    # tools/bench.py (the headline) in this process, through the public
+    # API; each row zeroes the launch counts before it and reads them after,
+    # and must agree with phases 4-5: one pack and two scan-kernel launches
+    # a fused encode, one apply launch an HLG/PQ/LINEAR decode on the card,
+    # none on SRGB or the host engine.  The scan recorder is set aside: the
+    # rows are timed, and phases 3-20 held the scan kernel to its plain
+    # version on every path
+    import io
+    from libultrahdr_tpu_torch.tools import bench as bench_tool
+    from libultrahdr_tpu_torch.tools import benchmarks as bm_tool
+    t21 = time.perf_counter()
+    dct.scan_inputs = real_scan_inputs
+    jpeg_encoder.forward_plane = real_forward_plane
+
+    def run_tool(main, argv) -> tuple[int, str]:
+        """main(argv) with its standard output captured (printed if it
+        raises)."""
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = main(argv)
+        except BaseException:
+            log(buf.getvalue())
+            raise
+        return rc, buf.getvalue()
+
+    def row_expect(row: dict) -> dict:
+        """The launches a row must read, from its config and calls."""
+        n, cfg = row["calls"], row["config"]
+        if cfg.startswith("enc"):
+            return {"pack_scan": n, "forward_dct": 2 * n}
+        if cfg.endswith("(host)") or "-> srgb" in cfg:
+            return {}
+        return {"apply_gainmap": n, "apply_linear": n * ("-> linear" in cfg)}
+
+    tools_launches = dict.fromkeys(counted, 0)
+    tools_launches["apply_linear"] = 0
+    with tempfile.TemporaryDirectory() as tmp21:
+        art = pathlib.Path(tmp21) / "benchmarks.json"
+        rc, _ = run_tool(bm_tool.main, ["--size", f"{w}x{h}", "--reps", "3",
+                                        "--json", str(art)])
+        matrix = json.loads(art.read_text())
+    for row in matrix["rows"]:
+        want = row_expect(row)
+        got = row["launches"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"phase 21 {row['config']}: launches "
+                                 f"{got}, expected {want} for "
+                                 f"{row['calls']} calls")
+        for k in tools_launches:
+            tools_launches[k] += got[k]
+        log(f"phase 21 row {row['config']} | {row['scene']} "
+            f"{row['resolution']}: {row['ms']:.3f} ms median of {row['n']} "
+            f"(min {row['min_ms']:.3f}, max {row['max_ms']:.3f}), "
+            f"{row['mp_per_s']:.3f} MP/s; checks failed {row['failed']} of "
+            f"{row['attempted']}; launches "
+            f"{ {k: v for k, v in got.items() if v} } in {row['calls']} "
+            "calls")
+    failed = [r["config"] for r in matrix["rows"] if r["failed"]]
+    if rc != 0 or failed:
+        raise AssertionError(f"phase 21 benchmarks: exit {rc}, rows failed "
+                             f"{failed}")
+    t21a = time.perf_counter() - t21
+    rc, out = run_tool(bench_tool.main, [])
+    headline = json.loads(out.strip().splitlines()[-1])
+    log(json.dumps(headline))
+    extra = headline["extra"]
+    n_enc = extra["encode_calls"]
+    if rc != 0 or not extra["pipelined_equal_single"] or \
+            extra["launches"] != {k: {"pack_scan": n_enc,
+                                      "forward_dct": 2 * n_enc}.get(k, 0)
+                                  for k in extra["launches"]}:
+        raise AssertionError(f"phase 21 bench: exit {rc}, launches "
+                             f"{extra['launches']} for {n_enc} images")
+    for k in tools_launches:
+        tools_launches[k] += extra["launches"][k]
+    dct_launches[0] += tools_launches["forward_dct"]
+    log(f"phase 21 the benchmark tools: {len(matrix['rows'])} rows of "
+        f"tools/benchmarks.py at {matrix['resolution']} ({t21a:.1f} s), "
+        f"every check passed and every row's launches as phases 4-5 count "
+        f"them; tools/bench.py: {n_enc} pipelined files == encode_api0, "
+        f"{extra['launches']['pack_scan']} pack launches; phase 21: "
+        f"{time.perf_counter() - t21:.1f} s | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -3732,7 +3815,8 @@ def main(argv=None) -> int:
         + general_launches["apply_linear"] + host_launches["apply_linear"] \
         + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches \
         + wire_dec_launches["apply_linear"] + capi_total["apply_linear"] \
-        + fuzz_launches["apply_linear"] + redecode_launches["apply_linear"]
+        + fuzz_launches["apply_linear"] + redecode_launches["apply_linear"] \
+        + tools_launches["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
@@ -3740,8 +3824,10 @@ def main(argv=None) -> int:
         + sum(c["apply_gainmap"] for c in slice9) \
         + sharded_apply_launches + wire_dec_launches["apply_gainmap"] \
         + capi_total["apply_gainmap"] + fuzz_launches["apply_gainmap"] \
-        + redecode_launches["apply_gainmap"] - linear
-    later = (wire_dec_launches, capi_total, fuzz_launches, redecode_launches)
+        + redecode_launches["apply_gainmap"] \
+        + tools_launches["apply_gainmap"] - linear
+    later = (wire_dec_launches, capi_total, fuzz_launches, redecode_launches,
+             tools_launches)
     log(f"launches of phases 3-17, no wire knob set: pack_scan "
         f"{before_wires['pack_scan']}, apply HLG/PQ "
         f"{hlg_pq - sum(c['apply_gainmap'] - c['apply_linear'] for c in later)}"
@@ -3755,8 +3841,13 @@ def main(argv=None) -> int:
         f"{capi_total['apply_gainmap']} (LINEAR {capi_total['apply_linear']})"
         f", scan kernel {capi_total['forward_dct']}; phase 20 (the card "
         f"fuzz and the decodes after it) added apply "
-        f"{sum(c['apply_gainmap'] for c in later[2:])} (LINEAR "
-        f"{sum(c['apply_linear'] for c in later[2:])})")
+        f"{sum(c['apply_gainmap'] for c in later[2:4])} (LINEAR "
+        f"{sum(c['apply_linear'] for c in later[2:4])}); phase 21 (the "
+        f"benchmark tools' rows) added pack_scan "
+        f"{tools_launches['pack_scan']}, apply "
+        f"{tools_launches['apply_gainmap']} (LINEAR "
+        f"{tools_launches['apply_linear']}), scan kernel "
+        f"{tools_launches['forward_dct']}")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -3765,7 +3856,7 @@ def main(argv=None) -> int:
                + general_input_launches["pack_scan"]
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
                + sharded_pack_launches + wire_enc_launches["pack_scan"]
-               + capi_total["pack_scan"],
+               + capi_total["pack_scan"] + tools_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",

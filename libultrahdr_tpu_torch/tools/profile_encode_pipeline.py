@@ -86,8 +86,10 @@ def _median(xs):
 
 def _split(jr, img, mode: str, dev, slot):
     """One frame through the wire route's stages, each timed alone, on
-    `slot` (a ``fused._Slot``; None on the CPU).  Returns (stage ms, the
-    file)."""
+    `slot` (a ``fused._Slot``; None on the CPU).  The "vw" wire is packed
+    by ``wire.pack_vw_wire``, what ``UHDR_TPU_WIRE=vw`` packs, with no knob
+    set; another mode through the knob.  Returns (stage ms and the wire's
+    bytes, the file)."""
     import torch
 
     from .. import fused, wire
@@ -98,10 +100,13 @@ def _split(jr, img, mode: str, dev, slot):
     cuda = slot is not None
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     planes = fused._p010_planes(img)
-    with _wire_knob(mode):
-        t0 = time.perf_counter()
-        buf, wmode = wire._pack_wire_auto(*planes)
-        pack_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    if mode == "vw":
+        buf, wmode = wire.pack_vw_wire(*planes)
+    else:
+        with _wire_knob(mode):
+            buf, wmode = wire._pack_wire_auto(*planes)
+    pack_ms = (time.perf_counter() - t0) * 1e3
     if buf is None:
         raise RuntimeError(f"UHDR_TPU_WIRE={mode}: the frame fits no wire")
     sync()
@@ -164,7 +169,8 @@ def _split(jr, img, mode: str, dev, slot):
         event)
     data = fused._container_p010(jr, job, fused._join_p010(job), 95, None)
     drain_ms = (time.perf_counter() - t0) * 1e3
-    return dict(wire=wire._wire_name(wmode), wire_mb=buf.nbytes / 1e6,
+    return dict(wire=wire._wire_name(wmode), wire_bytes=buf.nbytes,
+                wire_mb=buf.nbytes / 1e6,
                 pack_ms=pack_ms, upload_ms=upload_ms, device_ms=device_ms,
                 unslice_ms=unslice_ms, compute_host_ms=compute_host_ms,
                 drain_ms=drain_ms), data

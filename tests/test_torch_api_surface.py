@@ -543,9 +543,13 @@ HARDENING_TOOLS = {"fuzz/fuzz_parsers.py": "fuzz/fuzz_parsers.py",
                    "fuzz/differential.py": "fuzz/differential.py",
                    "tools/sanitize_replay.py": "tools/sanitize_replay.py",
                    "tools/_capi_asan_smoke.c": "tools/capi_asan_smoke.c"}
-# the JAX package's profile tools the port has a counterpart of
+# the JAX repository's profile and benchmark tools the port has a
+# counterpart of
 PROFILE_TOOLS = {"tools/profile_encode_pipeline.py":
-                 "tools/profile_encode_pipeline.py"}
+                 "tools/profile_encode_pipeline.py",
+                 "bench.py": "tools/bench.py",
+                 "benchmarks.py": "tools/benchmarks.py",
+                 "tools/derive_islow.py": "tools/derive_islow.py"}
 
 
 def test_module_coverage():
@@ -554,8 +558,10 @@ def test_module_coverage():
     source of its bindings (``capi/``, ``java/``) a counterpart of the same
     name under the port's ``capi/`` and ``java/``, and the hardening tools
     (the guided fuzzer, the differential fuzzer, the sanitizer replay and
-    its C smoke) and the profile tools (the pipelined encode's wire
-    profile) one under the port's ``fuzz/`` and ``tools/``."""
+    its C smoke), the profile tools (the pipelined encode's wire profile),
+    the benchmark scripts (``bench.py``, ``benchmarks.py``) and the islow
+    derivation (``tools/derive_islow.py``) one under the port's ``fuzz/``
+    and ``tools/``."""
     jax_root = REPO / "libultrahdr_tpu"
     port_root = REPO / "libultrahdr_tpu_torch"
     unported = []

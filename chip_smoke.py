@@ -177,7 +177,8 @@ held against the plain composition on its own inputs:
    both configurations, each file byte-identical to the raw route's of
    phases 4 and 4b and naming the wire it rode (``wire.RODE``), and the
    pipelined encode over phase 7's images, each on its own wire
-   (``UHDR_TPU_WIRE`` = auto, vw), equal to phase 7's files; 18c the
+   (``UHDR_TPU_WIRE`` = auto, vw, with ``UHDR_TPU_BATCH_K=1``: phase 22
+   runs the K-batches), equal to phase 7's files; 18c the
    4K decodes of both files to HLG and LINEAR with ``UHDR_TPU_WIRE`` = auto
    (the coefficient wire) and ``UHDR_TPU_WIRE_DOWN`` = auto, 4, 8, each
    equal to phase 5's raw output, and phase 8's batch decodes over the
@@ -233,6 +234,24 @@ held against the plain composition on its own inputs:
    phase, and so does a row whose launches differ from phases 4-5's (one
    pack and two scan-kernel launches a fused encode, one apply launch an
    HLG/PQ/LINEAR decode on the card, none on SRGB or the host engine);
+22. the K-batch route of the pipelined encode (``fused._batches``,
+   ``fused._dispatch_batch``): 22a the stitch kernel
+   (``csrc/stitch_kernel.cu``) against its plain version (torch.equal on
+   the live words) on ``testing.stitch_edge_cases`` (k = 1, images of 0
+   live words, odd counts, every total mod 4, 64 images); 22b the 8 rolled
+   4K photos of ``tools/bench.py`` (its benchmark configuration) with
+   ``UHDR_TPU_WIRE=vw`` at the default chunk bytes (K = 2), with
+   ``UHDR_TPU_CHUNK_BYTES=1e9`` (K = 8), over the 1d7 rung (each photo
+   overflows its escapes and goes up alone, over the dense 10-bit pack)
+   and with a non-uniform image (PQ) breaking a batch, and 8 rolled 4K
+   mosaics over the 2d6 rung (K = 2), each file equal to its single
+   ``encode_api0`` on the card, the launches as the batches imply (one
+   stitch a batch, one pack and two scan-kernel launches an image, the
+   un-slices as ``wire.RODE`` counts), and the stitch of the K = 8 batch at
+   4K against its plain version on the slot's own rows; 22c ms an image of
+   the K-batch route (K = 2, 8), the per-image wire route
+   (``UHDR_TPU_BATCH_K=1``) and the raw pipelined route, in turns, and the
+   stitch alone by CUDA events beside its bound;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -476,6 +495,7 @@ def main(argv=None) -> int:
     from libultrahdr_tpu_torch.ops import apply as apply_ops
     from libultrahdr_tpu_torch.ops import apply_kernel as ak
     from libultrahdr_tpu_torch.ops import colors, gainmap, idw, pixel, tonemap
+    from libultrahdr_tpu_torch.ops import stitch_kernel as stk
     from libultrahdr_tpu_torch.ops import wire_kernel as wk
     dev = torch.device("cuda", 0)
     CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
@@ -485,7 +505,8 @@ def main(argv=None) -> int:
                "apply_gainmap": ak.APPLY_KERNEL,
                "forward_dct": dct.FORWARD_DCT_KERNEL,
                "wire_unslice": wk.UNSLICE_KERNEL,
-               "down_pack": wk.DOWN_PACK_KERNEL}
+               "down_pack": wk.DOWN_PACK_KERNEL,
+               "stitch": stk.STITCH_KERNEL}
     # every scan-kernel launch read on a path, for the records
     dct_launches = [0]
     # every scan the paths build (dct.scan_inputs, one kernel launch a
@@ -555,7 +576,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
             ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB),
-            ("wire", wk.WIRE_LIB))
+            ("wire", wk.WIRE_LIB), ("stitch", stk.STITCH_LIB))
     from libultrahdr_tpu_torch.capi import build as capi_build
 
     def build_capi():
@@ -573,7 +594,7 @@ def main(argv=None) -> int:
             f.result()
         capi_shim, capi_test_exe, capi_roundtrip_exe = capi_fut.result()
         capi_inproc_shim = inproc_fut.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the five "
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the six "
         "kernel libraries (nvcc sm_90a), the host C++ and the C ABI shim "
         "(two variants) with its C programs, in parallel")
     for kname, lib in libs:
@@ -2806,7 +2827,8 @@ def main(argv=None) -> int:
         + sharded_pack_launches, "forward_dct": dct_launches[0]}
     log(f"phase 18 launches of phases 3-17, no wire knob set: {before_wires}"
         f" (the apply kernel's below, in the records)")
-    wire_knobs = ("UHDR_TPU_WIRE", "UHDR_TPU_WIRE_API1", "UHDR_TPU_WIRE_DOWN")
+    wire_knobs = ("UHDR_TPU_WIRE", "UHDR_TPU_WIRE_API1", "UHDR_TPU_WIRE_DOWN",
+                  "UHDR_TPU_BATCH_K", "UHDR_TPU_CHUNK_BYTES")
     if any(os.environ.get(k) is not None for k in wire_knobs):
         raise AssertionError(f"a wire knob is set in the environment: "
                              f"{[k for k in wire_knobs if k in os.environ]}")
@@ -3004,12 +3026,13 @@ def main(argv=None) -> int:
                     f" rode {took}, file == phase 4b's raw file byte for "
                     "byte")
     # the pipelined encode over phase 7's eight images, each on its own
-    # wire; the files equal phase 7's
+    # wire (K-batches of one: phase 22 runs the K-batch route); the files
+    # equal phase 7's
     for cfg, kw in configs.items():
         jr = port.JpegR(device="cuda", map_dimension_scale_factor=kw["scale"],
                         use_multi_channel_gainmap=kw["multichannel"])
         for v in ("auto", "vw"):
-            with knobs(UHDR_TPU_WIRE=v):
+            with knobs(UHDR_TPU_WIRE=v, UHDR_TPU_BATCH_K="1"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 outs_w = fused.encode_api0_p010_pipelined(jr, many, 95)
@@ -3791,6 +3814,165 @@ def main(argv=None) -> int:
         f"{extra['launches']['pack_scan']} pack launches; phase 21: "
         f"{time.perf_counter() - t21:.1f} s | {card}")
 
+    # ---- phase 22: the K-batch route --------------------------------------
+    # with UHDR_TPU_WIRE set the pipelined encode chunks uniform images into
+    # K-batches (fused._batches, the JAX package's chunking): one stacked
+    # upload, each image's stages and pack on a row of its own, one stitch
+    # (csrc/stitch_kernel.cu), one download.  22a the stitch against its
+    # plain version on edge cases; 22b the 8 rolled 4K photos of
+    # tools/bench.py over vw (K = 2 at the default chunk bytes, K = 8),
+    # over 1d7 (every photo overflows every delta rung's escapes and goes
+    # up alone over the dense 10-bit pack, as in the JAX package) and with
+    # a non-uniform image, and 8 rolled 4K mosaics over 2d6 (K = 2), each
+    # file == its single encode; the stitch of a K = 2 and a K = 8 batch
+    # against its plain version on the slot's own rows, timed alone; 22c
+    # ms an image in turns
+    t22 = time.perf_counter()
+    n_edge = 0
+    for cname, room_np, counts_np in testing.stitch_edge_cases():
+        room = torch.from_numpy(room_np).to(dev)
+        counts = torch.from_numpy(counts_np.astype(np.int64)).to(dev)
+        total = int(np.clip(counts_np, 0, room_np.shape[1]).sum())
+        tensors_equal((stk.stitch(room, counts)[:total],),
+                      (stk.stitch_plain(room, counts)[:total],),
+                      f"phase 22a stitch kernel on {cname}")
+        n_edge += 1
+    log(f"phase 22a stitch kernel == plain (torch.equal on the live words) "
+        f"on {n_edge} edge cases (testing.stitch_edge_cases: k = 1, images "
+        f"of 0 live words first, between and last, odd counts, every total "
+        f"mod 4, full rows, clamped counts, a pitch no multiple of 4, 64 "
+        f"images) | {card}")
+
+    k_imgs = bench_tool._scene_imgs(bm_tool.photo_p010, w=w, h=h)
+    odd = port.RawImage(Fmt.P010, CG.BT2100, CT.PQ, port.ColorRange.FULL,
+                        w, h, [p.copy() for p in k_imgs[3].planes])
+    jr22 = port.JpegR(device="cuda", map_dimension_scale_factor=4,
+                      use_multi_channel_gainmap=False, preset=0)
+    zero_counts()
+    singles = [jr22.encode_api0(im, 95) for im in k_imgs]
+    odd_single = jr22.encode_api0(odd, 95)
+    kb_launches = read_counts("phase 22 single encodes", {"pack_scan": 9})
+    kb_env = {"raw": {}, "per-image vw": {"UHDR_TPU_WIRE": "vw",
+                                          "UHDR_TPU_BATCH_K": "1"},
+              "K-batch vw": {"UHDR_TPU_WIRE": "vw"},
+              "K-batch vw, chunk 1e9": {"UHDR_TPU_WIRE": "vw",
+                                        "UHDR_TPU_CHUNK_BYTES": "1e9"},
+              "K-batch 1d7": {"UHDR_TPU_WIRE": "1d7"}}
+    units = {}
+    for what, env in kb_env.items():
+        with knobs(**env):
+            units[what] = [len(u) for u, _ in fused._batches(k_imgs)]
+
+    def batches(what) -> int:
+        return sum(n > 1 for n in units[what])
+
+    def add(total: dict, got: dict):
+        for kname, n in got.items():
+            total[kname] = total.get(kname, 0) + n
+
+    def kb_run(what, imgs, env, want, n_batches, time_it=False):
+        """One pipelined encode of `imgs` under `env`; every file == `want`
+        and the launches as its batches imply; host ms if `time_it`."""
+        wire.RODE.clear()
+        zero_counts()
+        with knobs(**env):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs_k = fused.encode_api0_p010_pipelined(jr22, imgs, 95)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        bad = [i for i, (a, b) in enumerate(zip(outs_k, want)) if a != b]
+        if bad or len(outs_k) != len(want):
+            raise AssertionError(f"phase 22 {what}: files {bad} != the "
+                                 "single encodes")
+        add(kb_launches, read_counts(
+            f"phase 22 {what}", {"pack_scan": len(imgs),
+                                 "wire_unslice": expected_unslice(),
+                                 "stitch": n_batches}))
+        if not time_it:
+            log(f"phase 22b {what}: units {units.get(what)}, rode {rode()},"
+                f" {len(imgs)} files == their single encode_api0, "
+                f"{n_batches} stitch launches, {ms:.1f} ms | {card}")
+        return ms
+
+    def stitch_row(what):
+        """The stitch of the last batch on slot 0 against its plain version
+        on the slot's own rows, and against the route's output; timed."""
+        scratch, _, room, out, _ = fused._SLOTS[dev][0].batch_bufs
+        counts = scratch[:, 1]
+        total = int(counts.sum())
+        out2 = torch.empty_like(out)
+        want = stk.stitch_plain(room, counts)[:total]
+        tensors_equal((stk.stitch(room, counts, out2)[:total],), (want,),
+                      f"phase 22b stitch kernel on {what}")
+        tensors_equal((out[:total],), (want,),
+                      f"phase 22b the route's stitch on {what}")
+        s_bound, s_by = bound(8 * total + 8 * room.shape[0], 0)
+        row = dict(
+            ms=cuda_ms(lambda: stk.stitch(room, counts, out2), 20),
+            kernel_ms=testing.launch_ms(
+                lambda: stk.STITCH_KERNEL.launch(room, counts, out2)),
+            plain_ms=cuda_ms(lambda: stk.stitch_plain(room, counts), 3),
+            bound_ms=s_bound, bound_by=s_by, err=0, k=room.shape[0],
+            live_mb=4 * total / 1e6)
+        log(f"phase 22b stitch of {what}: k {row['k']}, "
+            f"{row['live_mb']:.2f} MB of live words, kernel == plain "
+            f"(torch.equal) and == the route's output; wrapper "
+            f"{row['ms']:.4f} ms, kernel alone {row['kernel_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, bound {s_bound:.4f} ms "
+            f"({s_by}, {100 * s_bound / row['kernel_ms']:.0f}%) | {card}")
+        return row
+
+    kb_run("raw", k_imgs, kb_env["raw"], singles, 0)
+    kb_run("per-image vw", k_imgs, kb_env["per-image vw"], singles, 0)
+    kb_run("K-batch vw", k_imgs, kb_env["K-batch vw"], singles,
+           batches("K-batch vw"))
+    stitch_rows = {"K = 2": stitch_row("a K-batch of the vw run")}
+    kb_run("K-batch vw, chunk 1e9", k_imgs, kb_env["K-batch vw, chunk 1e9"],
+           singles, batches("K-batch vw, chunk 1e9"))
+    stitch_rows["K = 8"] = stitch_row("the K = 8 batch")
+    kb_run("K-batch 1d7", k_imgs, kb_env["K-batch 1d7"], singles,
+           batches("K-batch 1d7"))
+    mosaics = bench_tool._scene_imgs(bm_tool.natural_p010, w=w, h=h)
+    zero_counts()
+    mosaic_singles = [jr22.encode_api0(im, 95) for im in mosaics]
+    add(kb_launches, read_counts("phase 22 single mosaic encodes",
+                                 {"pack_scan": len(mosaics)}))
+    with knobs(UHDR_TPU_WIRE="2d6"):
+        units["K-batch 2d6 (mosaic)"] = [
+            len(u) for u, _ in fused._batches(mosaics)]
+    kb_run("K-batch 2d6 (mosaic)", mosaics, {"UHDR_TPU_WIRE": "2d6"},
+           mosaic_singles, batches("K-batch 2d6 (mosaic)"))
+    mixed = k_imgs[:3] + [odd] + k_imgs[3:]
+    with knobs(**kb_env["K-batch vw, chunk 1e9"]):
+        mixed_units = list(fused._batches(mixed))
+    units["non-uniform"] = [len(u) for u, _ in mixed_units]
+    kb_run("non-uniform", mixed, kb_env["K-batch vw, chunk 1e9"],
+           singles[:3] + [odd_single] + singles[3:], batches("non-uniform"))
+    # the rolled photos' vw wires may round to different buckets, which
+    # ends a batch as in the JAX package; the knobs must still give K = 2
+    # and larger batches, and the PQ image a unit of its own
+    if max(units["K-batch vw"]) != 2 \
+            or max(units["K-batch vw, chunk 1e9"]) <= 2 \
+            or max(units["K-batch 2d6 (mosaic)"]) != 2 \
+            or not any(u == [odd] for u, _ in mixed_units):
+        raise AssertionError(f"phase 22: units {units}, expected K = 2 at "
+                             "the default chunk bytes (vw, 2d6), batches of "
+                             "more than 2 at 1e9, the PQ image alone")
+    # 22c: ms an image, in turns
+    order = ["raw", "per-image vw", "K-batch vw", "K-batch vw, chunk 1e9"]
+    turns = {what: [] for what in order}
+    for what in order + order[::-1]:
+        turns[what].append(kb_run(what, k_imgs, kb_env[what], singles,
+                                  batches(what), time_it=True) / len(k_imgs))
+    for what in order:
+        log(f"phase 22c {what} (units {units[what]}): "
+            f"{' / '.join(f'{t:.2f}' for t in turns[what])} ms an image "
+            f"(host clock, 8 4K images a call, in turns) | {card}")
+    kb_stitch = kb_launches["stitch"]
+    log(f"phase 22 the K-batch route: {kb_stitch} stitch "
+        f"launches on its paths; {time.perf_counter() - t22:.1f} s | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -3847,7 +4029,10 @@ def main(argv=None) -> int:
         f"{tools_launches['pack_scan']}, apply "
         f"{tools_launches['apply_gainmap']} (LINEAR "
         f"{tools_launches['apply_linear']}), scan kernel "
-        f"{tools_launches['forward_dct']}")
+        f"{tools_launches['forward_dct']}; phase 22 (the K-batch route) "
+        f"added pack_scan {kb_launches['pack_scan']}, scan kernel "
+        f"{kb_launches['forward_dct']}, un-slice "
+        f"{kb_launches['wire_unslice']}, stitch {kb_launches['stitch']}")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -3856,7 +4041,8 @@ def main(argv=None) -> int:
                + general_input_launches["pack_scan"]
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
                + sharded_pack_launches + wire_enc_launches["pack_scan"]
-               + capi_total["pack_scan"] + tools_launches["pack_scan"],
+               + capi_total["pack_scan"] + tools_launches["pack_scan"]
+               + kb_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -3888,11 +4074,16 @@ def main(argv=None) -> int:
                "fused.py:299 (_vw_unslice; fused.py:126 _delta_decode_plane,"
                " fused.py:1835 _unpack_one_n)",
                wire_enc_launches["wire_unslice"]
-               + wire_dec_launches["wire_unslice"], unslice_row, 0),
+               + wire_dec_launches["wire_unslice"]
+               + kb_launches["wire_unslice"], unslice_row, 0),
         record("down_pack", "wire_kernel.cu",
                "fused.py:2022 (_down_delta_sections; fused.py:2053 / :2123 "
                "_pack_down_wire_1010102 / _f16)",
-               wire_dec_launches["down_pack"], down_row, 0)]}))
+               wire_dec_launches["down_pack"], down_row, 0),
+        # the JAX package stitches a K-batch with XLA ops, no pallas_call
+        record("stitch", "stitch_kernel.cu",
+               "fused.py:2608 (_stitch_image_streams)", kb_stitch,
+               stitch_rows["K = 8"], 0)]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {

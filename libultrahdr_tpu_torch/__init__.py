@@ -23,7 +23,12 @@ is still to come (the batch over several GPUs).
 
 The tensor math runs in full float32: TF32 matrix products and convolutions
 are turned off here, because the JAX package runs its DCT at HIGHEST
-precision.
+precision.  On the CPU, the vector math library that PyTorch links (MKL's
+VML: ``torch.exp``, ``log`` and the like) chooses its code path at its first
+call, and a first call made from several threads at once can run a share of
+the elements on another path, with other rounding: two encodes started
+together on fresh threads then wrote different bytes.  One call here, while
+the package is imported, makes that choice before any caller's thread runs.
 """
 
 __version__ = "1.4.0"  # the reference's UHDR_LIB_VERSION, as in libultrahdr_tpu
@@ -32,6 +37,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.exp(torch.zeros(1))
 
 from .errors import UhdrError, UhdrErrorCode  # noqa: E402,F401
 from .types import (Codec, ColorGamut, ColorRange,  # noqa: E402,F401

@@ -74,10 +74,12 @@ launch and the downloads of its word total and block lengths, without
 waiting for the card; a small thread pool waits for each image, downloads
 its words and joins its scans, so the host joins of several images overlap
 one another and the card; the caller's thread writes the containers in
-order between its dispatches.  With ``UHDR_TPU_WIRE`` set each image goes
-up over its own wire (``upload_p010``); the JAX package's K-batch stitch of
-several images' wires into one upload and one download is not ported (see
-ROADMAP.md).  The decode's
+order between its dispatches.  With ``UHDR_TPU_WIRE`` set the images go up
+over their wires in K-batches, as in the JAX package (``_batches``): up to
+``UHDR_TPU_BATCH_K`` uniform images whose wires share a mode, sized to
+``UHDR_TPU_CHUNK_BYTES``, take one stacked upload, their per-image stages
+and packs on one stream, one stitch of their words (``ops/stitch_kernel``)
+and one download; an image alone takes its own wire.  The decode's
 batch (``JpegR.decode_to_device_batch``) shares ``prepare_device``,
 ``PIPELINE_DEPTH`` and ``HOST_THREADS``.
 """
@@ -88,6 +90,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import os
 import threading
 
@@ -107,6 +110,7 @@ from .jpeg.dct import rgb_to_ycbcr as _rgb_to_ycbcr  # noqa: F401  (same)
 from .jpeg.tables import STD_CHROMA_QUANT, STD_LUMA_QUANT, scaled_quant_table
 from .ops import apply as apply_ops
 from .ops import apply_kernel, colors, gainmap as gainmap_ops, pixel
+from .ops import stitch_kernel
 from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, EncPreset,
                     GainMapMetadata, ImgFmt)
@@ -466,13 +470,14 @@ def _p010_planes(img):
     return [np.asarray(p, np.uint16) for p in img.planes[:2]]
 
 
-def upload_p010(img, device: torch.device):
+def upload_p010(img, device: torch.device, packed=None):
     """The two P010 planes on `device` as int16 views of their u16 samples:
     a raw upload, or with UHDR_TPU_WIRE set the API-0 upload wire
-    (``wire.upload_p010_wire``)."""
+    (``wire.upload_p010_wire``; `packed` its (buf, mode) when the caller
+    packed it already)."""
     planes = _p010_planes(img)
     if wire._wire_mode():
-        return list(wire.upload_p010_wire(*planes, device))
+        return list(wire.upload_p010_wire(*planes, device, packed))
     return upload_planes(planes, device)
 
 
@@ -618,13 +623,13 @@ def prepare_device(dev: torch.device):
 
 
 class _Slot:
-    """One image in flight: its CUDA stream, the pack kernel's buffers and
-    pinned host buffers for the downloads, all reused by the slot's next
-    image and by later calls (grown when an image needs more, never
-    shrunk).  The slot's next image is dispatched only after this one's
-    words are joined, so a launch never overwrites words still to be
-    read.  The sharded JPEG step (``parallel``) gives each shard's image
-    a slot of its own."""
+    """One image or K-batch in flight: its CUDA stream, the pack kernel's
+    buffers and pinned host buffers for the downloads, all reused by the
+    slot's next image and by later calls (grown when an image needs more,
+    never shrunk).  The slot's next image is dispatched only after this
+    one's words are joined, so a launch never overwrites words still to be
+    read.  A K-batch has buffers of its own (``batch``).  The sharded JPEG
+    step (``parallel``) gives each shard's image a slot of its own."""
 
     def __init__(self, dev: torch.device, stream):
         self.dev = dev
@@ -632,6 +637,8 @@ class _Slot:
         self.n = 0
         self.total_h = torch.zeros(1, dtype=torch.int64, pin_memory=True)
         self.words_h = torch.empty(0, dtype=torch.int32, pin_memory=True)
+        self.batch_room = (0, 0, 0)
+        self.batch_bufs = None
 
     def pack(self, stream, dc_diff, is_luma):
         """One launch of the pack kernel into the slot's buffers on the
@@ -652,6 +659,47 @@ class _Slot:
         self.total_h.copy_(scratch[1:2], non_blocking=True)
         self.blen_h[:n].copy_(self.blen[:n], non_blocking=True)
         return self.words, self.blen_h[:n]
+
+    def batch(self, k: int, n: int):
+        """The K-batch buffers for k images of n blocks each, on the slot's
+        stream: per image a zeroed pack scratch row, a row of block lengths
+        and a row of room for CAP_WORDS words a block (its pitch rounded up
+        to 16 bytes); the stitch's output; pinned block lengths.  Sets
+        ``batch_bufs`` = (scratch (k, t), blen (k, n), room (k, pitch),
+        out (k * pitch,), blen_h (k * n,))."""
+        tiles = 2 + -(-n // pack_kernel._SCAN_TILE)
+        pitch = -(-n * pack_kernel.CAP_WORDS // 4) * 4
+        need = (k * tiles, k * n, k * pitch)
+        if any(a > b for a, b in zip(need, self.batch_room)):
+            self.batch_room = tuple(max(a, b) for a, b in
+                                    zip(need, self.batch_room))
+            t, b, r = self.batch_room
+            self.k_scratch = torch.empty(t, dtype=torch.int64,
+                                         device=self.dev)
+            self.k_blen = torch.empty(b, dtype=torch.int32, device=self.dev)
+            self.k_blen_h = torch.empty(b, dtype=torch.int32,
+                                        pin_memory=True)
+            self.k_room = torch.empty(r, dtype=torch.int32, device=self.dev)
+            self.k_out = torch.empty(r, dtype=torch.int32, device=self.dev)
+        scratch = self.k_scratch[:k * tiles].view(k, tiles)
+        scratch.zero_()
+        self.batch_bufs = (scratch, self.k_blen[:k * n].view(k, n),
+                           self.k_room[:k * pitch].view(k, pitch),
+                           self.k_out[:k * pitch], self.k_blen_h[:k * n])
+
+    def pack_row(self, k: int, i: int, stream, dc_diff, is_luma):
+        """Image i of a K-batch of k: one launch of the pack kernel into
+        row i of the batch's buffers (made at image 0)."""
+        kern = pack_kernel.PACK_KERNEL
+        kern.check(stream, dc_diff, is_luma)
+        if i == 0:
+            self.batch(k, stream.shape[0])
+        scratch, blen, room = self.batch_bufs[:3]
+        if stream.shape[0] != blen.shape[1]:
+            raise ValueError(f"K-batch image {i}: {stream.shape[0]} blocks, "
+                             f"image 0 has {blen.shape[1]}")
+        kern.launch(stream, dc_diff, is_luma, scratch[i], blen[i], room[i])
+        return room[i], blen[i]
 
     def download(self, words: torch.Tensor, total: int) -> np.ndarray:
         """words[:total] into the slot's pinned buffer on its stream (the
@@ -674,46 +722,105 @@ _SLOTS_LOCK = threading.Lock()
 
 @dataclasses.dataclass
 class _EncodeJob:
-    """What a dispatched image leaves for its join and its container."""
-    img: object
+    """What a dispatched image or K-batch leaves for its join and its
+    containers."""
+    imgs: list
     scale: int
     metadata: GainMapMetadata
     layouts: list
-    words: torch.Tensor        # on the card: the slot's room
-    blen: torch.Tensor         # on the card: pinned, filled at `event`
+    words: torch.Tensor        # the pack's room, or a K-batch's stitch
+    blen: torch.Tensor         # on the card pinned, filled at `event`; a
+    #                            K-batch's k images back to back
     slot: _Slot | None = None
     event: torch.cuda.Event | None = None
 
 
-def _dispatch_p010(jr, img, quality: int, slot: _Slot | None) -> _EncodeJob:
-    """The device half of one pipelined image: upload, steps 1-4 and one
-    pack launch, queued on the slot's stream without waiting for the card
-    (with no slot, on the CPU: run in order)."""
+def _p010_stages(jr, img, quality: int):
+    """The arguments of ``_api0_p010_block_buffers`` for `img`, its map
+    scale and its metadata."""
     cg, ct = ColorGamut(img.cg), ColorTransfer(img.ct)
     scale = _resolve_scale(jr, img)
     use_base_cg = _use_base_cg(ColorGamut.DISPLAY_P3, cg, jr.write_xmp)
+    kw = dict(cg=cg, ct=ct, rng=ColorRange(img.range), scale=scale,
+              multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
+              quality=int(quality), map_quality=jr.map_compress_quality,
+              use_base_cg=use_base_cg)
+    return kw, scale, _onepass_metadata(jr, ct, use_base_cg)
+
+
+def _dispatch_p010(jr, img, quality: int, slot: _Slot | None,
+                   packed=None) -> _EncodeJob:
+    """The device half of one pipelined image: upload (over `packed`, its
+    wire, when the caller packed it), steps 1-4 and one pack launch, queued
+    on the slot's stream without waiting for the card (with no slot, on
+    the CPU: run in order)."""
+    kw, scale, metadata = _p010_stages(jr, img, quality)
     with torch.cuda.stream(slot.stream) if slot \
             else contextlib.nullcontext():
         scans = _api0_p010_block_buffers(
-            *upload_p010(img, jr.device), cg=cg, ct=ct,
-            rng=ColorRange(img.range), scale=scale,
-            multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
-            quality=int(quality), map_quality=jr.map_compress_quality,
-            use_base_cg=use_base_cg)
+            *upload_p010(img, jr.device, packed), **kw)
         words, blen = _pack_scans(
             scans, slot.pack if slot else pack_kernel.pack_scan)
         event = None
         if slot:
             event = sleeping_event()
             event.record(slot.stream)
-    return _EncodeJob(img, scale, _onepass_metadata(jr, ct, use_base_cg),
-                      [lay for _, lay in scans], words, blen, slot, event)
+    return _EncodeJob([img], scale, metadata, [lay for _, lay in scans],
+                      words, blen, slot, event)
 
 
-def _join_p010(job: _EncodeJob) -> list[bytes]:
-    """Wait for one image's pack, download its words and join both scans:
-    host work that holds the GIL only briefly (the waits, the copy and the
-    C++ joiner release it)."""
+def _dispatch_batch(jr, imgs, wires, quality: int,
+                    slot: _Slot | None) -> _EncodeJob:
+    """The device half of a K-batch (the JAX ``_dispatch_api0_p010_batch``):
+    the k packed wires in one stacked upload, each image's stages and pack
+    on its row, one stitch of the k images' words and one copy of their
+    block lengths to pinned memory, queued on the slot's stream (with no
+    slot, on the CPU: in order, each pack's words set in a row of their
+    own for the stitch's plain version).
+
+    The pack cannot overflow, where the JAX package's per-image budget can
+    (its drain then encodes the batch on the general path): each image's
+    row has room for CAP_WORDS words a block, the most a block can take
+    (``pack_kernel.CAP_WORDS``)."""
+    img0 = imgs[0]
+    kw, scale, metadata = _p010_stages(jr, img0, quality)
+    mode = wires[0][1]
+    k = len(imgs)
+    with torch.cuda.stream(slot.stream) if slot \
+            else contextlib.nullcontext():
+        bufs = wire.upload_p010_wires([b for b, _ in wires], mode, jr.device)
+        packs = []
+        for i in range(k):
+            scans = _api0_p010_block_buffers(
+                *wire.decode_p010_wire(bufs[i], img0.h, img0.w, mode), **kw)
+            packs.append(_pack_scans(
+                scans, functools.partial(slot.pack_row, k, i) if slot
+                else pack_kernel.pack_scan))
+        layouts = [lay for _, lay in scans]
+        if slot is None:
+            pitch = -(-max(w.numel() for w, _ in packs) // 4) * 4
+            room = torch.zeros((k, pitch), dtype=torch.int32)
+            for i, (w, _) in enumerate(packs):
+                room[i, :w.numel()] = w
+            counts = torch.tensor([w.numel() for w, _ in packs])
+            return _EncodeJob(imgs, scale, metadata, layouts,
+                              stitch_kernel.stitch(room, counts),
+                              torch.cat([b for _, b in packs]))
+        scratch, blen, room, out, blen_h = slot.batch_bufs
+        words = stitch_kernel.stitch(room, scratch[:, 1], out)
+        blen_h.copy_(blen.reshape(-1), non_blocking=True)
+        event = sleeping_event()
+        event.record(slot.stream)
+    return _EncodeJob(imgs, scale, metadata, layouts, words, blen_h, slot,
+                      event)
+
+
+def _join_p010(job: _EncodeJob) -> list[list[bytes]]:
+    """Wait for an image's or a K-batch's pack, download its words and join
+    each image's two scans: host work that holds the GIL only briefly (the
+    waits, the copy and the C++ joiner release it).  Returns each image's
+    [base scan, gain-map scan]."""
+    k = len(job.imgs)
     with stage("encode.fetch_offsets"):
         if job.event is not None:
             job.event.synchronize()
@@ -722,18 +829,87 @@ def _join_p010(job: _EncodeJob) -> list[bytes]:
         if job.slot is None:
             words_h = job.words.numpy().view(np.uint32)
         else:
-            words_h = job.slot.download(job.words, int(job.slot.total_h[0]))
-        return _join_scans(words_h, blen_h, job.layouts)
+            words_h = job.slot.download(
+                job.words, int(job.slot.total_h[0]) if k == 1
+                else device_entropy.total_words(blen_h))
+        if k == 1:
+            return [_join_scans(words_h, blen_h, job.layouts)]
+        bl, gl = job.layouts
+        n_base = bl.mcus_h * bl.bpr
+        rows = blen_h.astype(np.uint16).reshape(k, -1)
+        scans = fetch_blocks_multi(words_h, [
+            part for r in rows
+            for part in ((r[:n_base], bl.bpr), (r[n_base:], gl.bpr))])
+        return [scans[2 * i:2 * i + 2] for i in range(k)]
 
 
-def _container_p010(jr, job: _EncodeJob, scans, quality: int,
+def _container_p010(jr, job: _EncodeJob, img, scans, quality: int,
                     exif: bytes | None) -> bytes:
     """The JPEG headers and the container of one pipelined image."""
-    img = job.img
     return _assemble_container(
         jr, img.w, img.h, quality, scans[0], _SAMPLING_420,
         ColorGamut.DISPLAY_P3, job.scale, scans[1], job.metadata, exif,
         ColorTransfer(img.ct), ColorGamut(img.cg))
+
+
+def _batch_knobs() -> tuple[int, float]:
+    """(UHDR_TPU_BATCH_K, default 8, at least 1; UHDR_TPU_CHUNK_BYTES,
+    default 20e6), parsed as the JAX package parses them."""
+    return (max(1, int(os.environ.get("UHDR_TPU_BATCH_K", "8"))),
+            float(os.environ.get("UHDR_TPU_CHUNK_BYTES", "20e6")))
+
+
+def _uniform(a, b) -> bool:
+    """Two images a K-batch may hold together: one size, gamut, transfer
+    and range."""
+    return (a.w == b.w and a.h == b.h and a.cg == b.cg and a.ct == b.ct
+            and a.range == b.range)
+
+
+def _batches(imgs):
+    """The pipelined encode's units in input order: (images, their packed
+    wires).  With UHDR_TPU_WIRE unset every image alone and no wire (the
+    raw route).  With it set, the JAX package's chunking
+    (``libultrahdr_tpu/fused.py:2229-2280``): each image's wire is packed
+    once (``wire._pack_wire_auto``); an image whose wire packed starts a
+    K-batch of at most k_cap = max(1, min(UHDR_TPU_BATCH_K,
+    round(UHDR_TPU_CHUNK_BYTES / its wire's bytes))) images (and at most
+    ``stitch_kernel.MAX_IMAGES``), joined by the next images that are
+    ``_uniform`` with it and whose wires packed in its mode (so to its
+    length); an image that breaks a batch starts the next unit with its
+    wire already packed; a unit of one image keeps its packed wire (or
+    (None, None): the dense 10-bit pack)."""
+    if not wire._wire_mode():
+        for img in imgs:
+            yield [img], None
+        return
+    batch_k, chunk_bytes = _batch_knobs()
+    packed: dict = {}
+
+    def wire_of(i):
+        if i not in packed:
+            packed[i] = wire._pack_wire_auto(*_p010_planes(imgs[i]))
+        return packed[i]
+
+    i = 0
+    while i < len(imgs):
+        unit, wires = [imgs[i]], [wire_of(i)]
+        if wires[0][0] is not None:
+            k_cap = min(stitch_kernel.MAX_IMAGES, max(1, min(
+                batch_k, round(chunk_bytes / max(wires[0][0].nbytes, 1)))))
+            j = i + 1
+            while j < len(imgs) and len(unit) < k_cap \
+                    and _uniform(imgs[j], imgs[i]):
+                w = wire_of(j)
+                if w[0] is None or w[1] != wires[0][1]:
+                    break
+                unit.append(imgs[j])
+                wires.append(w)
+                j += 1
+        i += len(unit)
+        for done in [x for x in packed if x < i]:
+            del packed[done]
+        yield unit, wires
 
 
 def encode_api0_p010_pipelined(jr, imgs, quality: int = 95,
@@ -742,29 +918,41 @@ def encode_api0_p010_pipelined(jr, imgs, quality: int = 95,
     the files in input order, each equal to ``jr.encode_api0`` of its
     image byte for byte.
 
-    On the card image i runs on slot i % PIPELINE_DEPTH.  The caller's
-    thread dispatches it (``_dispatch_p010``: every launch stays on this
-    thread) once the slot's previous image is joined, and writes the
-    containers in order (``_container_p010``); a pool of PIPELINE_DEPTH
-    threads waits for each image, downloads and joins it
+    The units of work are ``_batches``: each image alone, or with
+    UHDR_TPU_WIRE set K-batches of images over their wires.  On the card
+    unit u runs on slot u % PIPELINE_DEPTH.  The caller's thread
+    dispatches it (``_dispatch_p010``, ``_dispatch_batch``: every launch
+    stays on this thread) once the slot's previous unit is joined, and
+    writes the containers in order (``_container_p010``); a pool of
+    PIPELINE_DEPTH threads waits for each unit, downloads and joins it
     (``_join_p010``).  The Python-heavy stages share one thread, so the
     pool's threads, which mostly wait or run C++, do not hold up the
     dispatch's many short releases of the GIL.  Images of any size, gamut,
     transfer or range share the pipeline.  An error propagates; nothing
     falls back.  On the CPU the same stages run in order, with no streams,
-    events or pinned memory.  With UHDR_TPU_WIRE set each image goes up
-    over its own wire (``upload_p010``)."""
+    events or pinned memory."""
     imgs = list(imgs)
     for img in imgs:
         if ImgFmt(img.fmt) != ImgFmt.P010:
             raise invalid_param(f"the pipelined encode takes P010 input, "
                                 f"got {ImgFmt(img.fmt)}")
+
+    def dispatch(unit, slot):
+        batch, wires = unit
+        if len(batch) == 1:
+            return _dispatch_p010(jr, batch[0], quality, slot,
+                                  wires and wires[0])
+        return _dispatch_batch(jr, batch, wires, quality, slot)
+
+    def containers(job, joined):
+        return [_container_p010(jr, job, img, scans, quality, exif)
+                for img, scans in zip(job.imgs, joined)]
+
     if jr.device.type != "cuda":
         outs = []
-        for img in imgs:
-            job = _dispatch_p010(jr, img, quality, None)
-            outs.append(_container_p010(jr, job, _join_p010(job), quality,
-                                        exif))
+        for unit in _batches(imgs):
+            job = dispatch(unit, None)
+            outs += containers(job, _join_p010(job))
         return outs
     dev = jr.device
     prepare_device(dev)
@@ -772,17 +960,17 @@ def encode_api0_p010_pipelined(jr, imgs, quality: int = 95,
 
     def finish_oldest():
         job, joined = pending.popleft()
-        outs.append(_container_p010(jr, job, joined.result(), quality, exif))
+        outs.extend(containers(job, joined.result()))
 
     with _SLOTS_LOCK:
         if dev not in _SLOTS:
             _SLOTS[dev] = [_Slot(dev, s) for s in side_streams(dev)]
         slots = _SLOTS[dev][:max(1, min(PIPELINE_DEPTH, len(imgs)))]
         with concurrent.futures.ThreadPoolExecutor(len(slots)) as pool:
-            for i, img in enumerate(imgs):
-                if len(pending) == len(slots):   # frees slot i % len(slots)
+            for u, unit in enumerate(_batches(imgs)):
+                if len(pending) == len(slots):   # frees slot u % len(slots)
                     finish_oldest()
-                job = _dispatch_p010(jr, img, quality, slots[i % len(slots)])
+                job = dispatch(unit, slots[u % len(slots)])
                 pending.append((job, pool.submit(_join_p010, job)))
             while pending:
                 finish_oldest()

@@ -515,6 +515,36 @@ def unslice_edge_cases(seed: int = 15):
             for name, pay, n, bits, w, o, align in out]
 
 
+def stitch_edge_cases(seed: int = 17):
+    """The stitch kernel's edge cases (``csrc/stitch_kernel.cu``: 16-byte
+    output groups, the image of a group's first word by binary search):
+    (name, room (k, pitch) int32, counts (k,) int64).  One image; images of
+    0 live words first, between and last; odd counts; totals of each
+    residue mod 4 and under one group; full rows; counts past the pitch or
+    below 0 (clamped); a pitch that is no multiple of 4; 64 images."""
+    rs = np.random.RandomState(seed)
+
+    def case(name, counts, pitch):
+        counts = np.asarray(counts, np.int64)
+        return (name, _rand_words(rs, len(counts) * pitch).reshape(
+            len(counts), pitch), counts)
+
+    out = [case("k = 1", [37], 37), case("k = 1, 0 live words", [0], 40),
+           case("an image of 0 live words between", [5, 0, 9], 16),
+           case("images of 0 live words first and last", [0, 0, 6, 0], 8),
+           case("every image 0 live words", [0, 0, 0], 12),
+           case("odd counts", [3, 7, 1, 13], 16),
+           case("total under one group", [1, 2], 4),
+           case("full rows", [24, 24, 24], 24),
+           case("counts past the pitch and below 0", [30, -3, 4], 20),
+           case("pitch no multiple of 4", [5, 11, 2], 13)]
+    for total in (97, 98, 99, 100):
+        out.append(case(f"total {total} (mod 4 = {total % 4})",
+                        [total - 60, 60], 64))
+    out.append(case("64 images", rs.randint(0, 300, 64), 300))
+    return out
+
+
 def aligned_tensor(arr: np.ndarray, align: int, device) -> torch.Tensor:
     """`arr` on `device` as a contiguous view that starts `align` 4-byte
     words past the start of its own allocation (itself 16-byte aligned),

@@ -190,13 +190,15 @@ def kernel_counters() -> dict:
     from ..jpeg import dct
     from ..jpeg import pack_kernel as pk
     from ..ops import apply_kernel as ak
+    from ..ops import stitch_kernel as sk
     from ..ops import wire_kernel as wk
     return {"pack_scan": pk.PACK_KERNEL, "pack_blocks": pk.PACK_BLOCKS_KERNEL,
             "pack_tiles": pk.PACK_TILES_KERNEL,
             "apply_gainmap": ak.APPLY_KERNEL,
             "forward_dct": dct.FORWARD_DCT_KERNEL,
             "wire_unslice": wk.UNSLICE_KERNEL,
-            "down_pack": wk.DOWN_PACK_KERNEL}
+            "down_pack": wk.DOWN_PACK_KERNEL,
+            "stitch": sk.STITCH_KERNEL}
 
 
 def zero_launches() -> None:

@@ -8,8 +8,9 @@
 The port's counterpart of the JAX package's
 ``tools/profile_encode_pipeline.py``.  Each frame (``testing.photo_p010``,
 seeds 17 on) goes up over its own wire, as the port's pipelined encode
-sends it with ``UHDR_TPU_WIRE`` set (the JAX K-batch stitch is not
-ported).  Per frame and wire mode, the stages of ``fused._dispatch_p010``
+sends an image that is alone in its unit with ``UHDR_TPU_WIRE`` set (the
+K-batch route, ``fused._dispatch_batch``, is timed by chip_smoke phase
+22).  Per frame and wire mode, the stages of ``fused._dispatch_p010``
 and its drain, run one after the other and each timed alone:
 
 - pack: the host pack of the wire (``wire._pack_wire_auto``: for "vw"
@@ -142,8 +143,7 @@ def _split(jr, img, mode: str, dev, slot):
                                for _ in range(2))
                 first.record()
             t0 = time.perf_counter()
-            y, uv = (wire._vw_decode_planes(buf_d, h, w) if wmode[0] == "vw"
-                     else wire._decode_delta_wire(buf_d, h, w, wmode))
+            y, uv = wire.decode_p010_wire(buf_d, h, w, wmode)
             scans = fused._api0_p010_block_buffers(
                 y, uv, cg=cg, ct=ct, rng=ColorRange(img.range), scale=scale,
                 multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
@@ -164,10 +164,11 @@ def _split(jr, img, mode: str, dev, slot):
     unslice_ms = sum(a.elapsed_time(b) for a, b in pairs) if cuda else None
 
     t0 = time.perf_counter()
-    job = fused._EncodeJob(img, scale, fused._onepass_metadata(
+    job = fused._EncodeJob([img], scale, fused._onepass_metadata(
         jr, ct, use_base_cg), [lay for _, lay in scans], words, blen, slot,
         event)
-    data = fused._container_p010(jr, job, fused._join_p010(job), 95, None)
+    data = fused._container_p010(jr, job, img, fused._join_p010(job)[0], 95,
+                                 None)
     drain_ms = (time.perf_counter() - t0) * 1e3
     return dict(wire=wire._wire_name(wmode), wire_bytes=buf.nbytes,
                 wire_mb=buf.nbytes / 1e6,

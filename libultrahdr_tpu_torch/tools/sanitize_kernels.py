@@ -8,17 +8,20 @@ guards where the sanitizer cannot attach.
         [--fill 0xA5]
     python -m libultrahdr_tpu_torch.tools.sanitize_kernels --repeat N
 
-The eight kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
+The nine kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
 the block and tile packs (``csrc/block_pack_kernel.cu``), the apply's
 HLG/PQ and LINEAR branches (``csrc/apply_kernel.cu``), the scan build
 (``csrc/dct_kernel.cu``), the wire un-slice and the download pack
-(``csrc/wire_kernel.cu``).  Their cases are chip_smoke's phase 3 and 18a
-edge cases ("small": one MCU, MCU grids with ragged edges, block counts on
-and off the packs' tiles, an overflowing tile, worst-case blocks, grid
-ties, NaN and out-of-range values, 2-8-bit wires, escape lists at and over
-their cap) and the 4K default shapes ("4k": the 3840x2160 base and
-3-channel map scans, 583,200 blocks in one pack, the 4K apply, wires of
-8,294,400 samples).
+(``csrc/wire_kernel.cu``) and the K-batch stitch
+(``csrc/stitch_kernel.cu``).  Their cases are chip_smoke's phase 3, 18a
+and 22 edge cases ("small": one MCU, MCU grids with ragged edges, block
+counts on and off the packs' tiles, an overflowing tile, worst-case
+blocks, grid ties, NaN and out-of-range values, 2-8-bit wires, escape
+lists at and over their cap, ``testing.stitch_edge_cases``) and the 4K
+default shapes ("4k": the 3840x2160 base and 3-channel map scans, 583,200
+blocks in one pack, the 4K apply, wires of 8,294,400 samples, a stitch of
+8 images' rooms of 583,200 blocks).  A stitch is compared on its live
+words, the words its output defines.
 
 ``--tool T`` (memcheck, racecheck, synccheck, initcheck: the process runs
 under ``compute-sanitizer --tool T``) runs the small cases, memcheck also
@@ -54,7 +57,7 @@ import numpy as np
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 KERNELS = ("pack_scan", "pack_blocks", "pack_tiles", "apply_gainmap",
            "apply_gainmap_linear", "forward_dct", "wire_unslice",
-           "down_pack")
+           "down_pack", "stitch")
 
 
 def tensors_equal(got, want, what: str):
@@ -380,11 +383,42 @@ def _wire_cases(dev, big: bool):
                        tensors_equal)
 
 
+def _stitch_cases(dev, big: bool):
+    import torch
+    from .. import testing
+    from ..jpeg import pack_kernel as pk
+    from ..ops import stitch_kernel as sk
+    if big:
+        # 8 default 4K images' rooms (583,200 blocks, CAP_WORDS words
+        # each), their live counts about a photo's
+        pitch = -(-583200 * pk.CAP_WORDS // 4) * 4
+        gen = torch.Generator(device=dev).manual_seed(22)
+        room = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, pitch),
+                             dtype=torch.int32, device=dev, generator=gen)
+        counts = np.array([2_500_000 + 40_001 * i for i in range(8)])
+        todo = [("k = 8 at 4K, rooms of 583200 blocks", room, counts)]
+    else:
+        todo = [(name, torch.from_numpy(r).to(dev), c)
+                for name, r, c in testing.stitch_edge_cases()]
+    for name, room, counts in todo:
+        total = int(np.clip(counts, 0, room.shape[1]).sum())
+        # the counts as the route passes them: column 1 of scratch rows
+        scratch = torch.zeros((len(counts), 3), dtype=torch.int64,
+                              device=dev)
+        scratch[:, 1] = torch.from_numpy(counts.astype(np.int64)).to(dev)
+        yield ("stitch", name,
+               lambda r=room, c=scratch[:, 1], t=total: sk.stitch(r, c)[:t],
+               lambda r=room, c=scratch[:, 1], t=total: sk.stitch_plain(
+                   r, c)[:t],
+               tensors_equal)
+
+
 def cases(dev, shapes: str = "small"):
     """Every case at `shapes` ("small", "4k" or "all")."""
     for big in {"small": (False,), "4k": (True,),
                 "all": (False, True)}[shapes]:
-        for gen in (_pack_cases, _apply_cases, _scan_cases, _wire_cases):
+        for gen in (_pack_cases, _apply_cases, _scan_cases, _wire_cases,
+                    _stitch_cases):
             yield from gen(dev, big)
 
 
@@ -392,7 +426,8 @@ def launch_counts() -> dict:
     """Each kernel's launch count so far (the apply's LINEAR branch
     apart from its HLG/PQ one)."""
     from ..jpeg import dct, pack_kernel as pk
-    from ..ops import apply_kernel as ak, wire_kernel as wk
+    from ..ops import apply_kernel as ak, stitch_kernel as sk
+    from ..ops import wire_kernel as wk
     linear = ak.APPLY_KERNEL.linear_launches
     return {"pack_scan": pk.PACK_KERNEL.launches,
             "pack_blocks": pk.PACK_BLOCKS_KERNEL.launches,
@@ -401,7 +436,8 @@ def launch_counts() -> dict:
             "apply_gainmap_linear": linear,
             "forward_dct": dct.FORWARD_DCT_KERNEL.launches,
             "wire_unslice": wk.UNSLICE_KERNEL.launches,
-            "down_pack": wk.DOWN_PACK_KERNEL.launches}
+            "down_pack": wk.DOWN_PACK_KERNEL.launches,
+            "stitch": sk.STITCH_KERNEL.launches}
 
 
 def run(dev, shapes: str = "small", repeat: int = 1, log=print) -> dict:

@@ -361,13 +361,23 @@ def _wire_name(mode) -> str:
     return f"{2 if mode[0] else 1}d{mode[1]}"
 
 
-def upload_p010_wire(y_plane: np.ndarray, uv_plane: np.ndarray, device):
-    """The API-0 P010 upload over a wire: ``_pack_wire_auto``, ONE upload
-    of its buffer and its decode on `device`, or on overflow the dense
-    10-bit pack (two uploads and ``_unpack_10bit``).  Returns the (y, uv)
-    int16 carriers."""
+def decode_p010_wire(buf: torch.Tensor, h: int, w: int, mode):
+    """The device half of a packed P010 wire of `mode` (vw or a delta
+    rung): the (y, uv) int16 carriers."""
+    if mode[0] == "vw":
+        return _vw_decode_planes(buf, h, w)
+    return _decode_delta_wire(buf, h, w, mode)
+
+
+def upload_p010_wire(y_plane: np.ndarray, uv_plane: np.ndarray, device,
+                     packed=None):
+    """The API-0 P010 upload over a wire: ``_pack_wire_auto`` (or `packed`,
+    its (buf, mode) when the caller packed already), ONE upload of its
+    buffer and its decode on `device`, or on overflow the dense 10-bit pack
+    (two uploads and ``_unpack_10bit``).  Returns the (y, uv) int16
+    carriers."""
     h, w = y_plane.shape
-    buf, mode = _pack_wire_auto(y_plane, uv_plane)
+    buf, mode = packed or _pack_wire_auto(y_plane, uv_plane)
     if buf is None:
         _rode("p010", "10bit")
         y_bits = native.pack_p010_10bit(np.ascontiguousarray(y_plane))
@@ -376,10 +386,24 @@ def upload_p010_wire(y_plane: np.ndarray, uv_plane: np.ndarray, device):
                 _unpack_10bit(_upload(uv_bits, device),
                               uv_plane.size).reshape(uv_plane.shape))
     _rode("p010", _wire_name(mode))
-    buf = _upload(buf, device)
-    if mode[0] == "vw":
-        return _vw_decode_planes(buf, h, w)
-    return _decode_delta_wire(buf, h, w, mode)
+    return decode_p010_wire(_upload(buf, device), h, w, mode)
+
+
+def upload_p010_wires(bufs, mode, device) -> torch.Tensor:
+    """k packed P010 wires of one `mode` (so of one length) as the (k,
+    words) int32 carrier on `device`, in ONE upload: on the card from one
+    pinned staging buffer, each wire copied into its row once.  Counts each
+    image's wire in RODE."""
+    for _ in bufs:
+        _rode("p010", _wire_name(mode))
+    if torch.device(device).type != "cuda":
+        return torch.from_numpy(np.stack(bufs).view(np.int32))
+    host = torch.empty((len(bufs), bufs[0].size), dtype=torch.int32,
+                       pin_memory=True)
+    rows = host.numpy()
+    for i, b in enumerate(bufs):
+        rows[i] = b.view(np.int32)
+    return host.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------

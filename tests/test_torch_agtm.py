@@ -28,6 +28,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import agtm
 from libultrahdr_tpu_torch import testing
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 96, 56
 Fmt = port.ImgFmt
 

@@ -43,6 +43,10 @@ from libultrahdr_tpu_torch import capi_bridge, cli, fused, jpegr_compat
 from libultrahdr_tpu_torch import testing
 from libultrahdr_tpu_torch.utils import profiling
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 W, H = 64, 48
 Fmt, CG, CT = port.ImgFmt, port.ColorGamut, port.ColorTransfer
@@ -542,7 +546,8 @@ PORTED_AS = {"ops/pallas_apply.py": "ops/apply_kernel.py"}
 HARDENING_TOOLS = {"fuzz/fuzz_parsers.py": "fuzz/fuzz_parsers.py",
                    "fuzz/differential.py": "fuzz/differential.py",
                    "tools/sanitize_replay.py": "tools/sanitize_replay.py",
-                   "tools/_capi_asan_smoke.c": "tools/capi_asan_smoke.c"}
+                   "tools/_capi_asan_smoke.c": "tools/capi_asan_smoke.c",
+                   "tools/full_gate.py": "tools/full_gate.py"}
 # the JAX repository's profile and benchmark tools the port has a
 # counterpart of
 PROFILE_TOOLS = {"tools/profile_encode_pipeline.py":
@@ -558,7 +563,7 @@ def test_module_coverage():
     source of its bindings (``capi/``, ``java/``) a counterpart of the same
     name under the port's ``capi/`` and ``java/``, and the hardening tools
     (the guided fuzzer, the differential fuzzer, the sanitizer replay and
-    its C smoke), the profile tools (the pipelined encode's wire profile),
+    its C smoke, the segmented test gate), the profile tools (the pipelined encode's wire profile),
     the benchmark scripts (``bench.py``, ``benchmarks.py``) and the islow
     derivation (``tools/derive_islow.py``) one under the port's ``fuzz/``
     and ``tools/``."""
@@ -580,6 +585,36 @@ def test_module_coverage():
                  if not (port_root / port_rel).is_file()]
     assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())
+
+
+def test_no_entry_point_defaults_to_the_cpu():
+    """Every function of the port with a ``device`` parameter defaults to
+    the card or to its caller's tensors (``"cuda"`` or None), and every
+    command line's ``--device`` to ``"cuda"``: no entry point runs on the
+    CPU unless asked."""
+    import ast
+    found = []
+    for f in sorted((REPO / "libultrahdr_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                a = node.args
+                pairs = list(zip(a.args[len(a.args) - len(a.defaults):],
+                                 a.defaults))
+                pairs += [(k, d) for k, d in zip(a.kwonlyargs,
+                                                 a.kw_defaults) if d]
+                for arg, d in pairs:
+                    if arg.arg == "device" and isinstance(d, ast.Constant):
+                        found.append((f.name, node.name, d.value))
+            elif isinstance(node, ast.Call) and node.args and isinstance(
+                    node.args[0], ast.Constant) \
+                    and node.args[0].value == "--device" \
+                    and getattr(node.func, "attr", "") == "add_argument":
+                d = {k.arg: k.value for k in node.keywords}.get("default")
+                found.append((f.name, "--device",
+                              getattr(d, "value", d)))
+    assert found
+    assert [x for x in found if x[2] not in ("cuda", None)] == []
+    assert sum(x[1] == "--device" for x in found) >= 6
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -31,6 +31,10 @@ from libultrahdr_tpu_torch.ops import apply as port_apply
 from libultrahdr_tpu_torch.ops import apply_kernel as port_ak
 from libultrahdr_tpu_torch.ops import idw as port_idw
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 OUTPUTS = [JaxTransfer.HLG, JaxTransfer.PQ, JaxTransfer.LINEAR]
 
 

@@ -34,6 +34,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import fused, testing
 from libultrahdr_tpu_torch.tools import bench, benchmarks
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 SIZES = [(96, 64), (130, 66)]
 
 

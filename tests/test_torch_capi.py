@@ -9,7 +9,12 @@ API and the JAX package, on the CPU (``UHDR_TPU_TORCH_DEVICE=cpu``).
   configurations (map scale 4, one channel; scale 1, three): its file is
   byte-equal to ``UhdrEncoder(device="cpu").encode()``, its HLG and LINEAR
   decodes to ``UhdrDecoder(device="cpu")``'s; two C threads, each through
-  its own encoder, write the sequential file.  Against the JAX package's
+  its own encoder, write the sequential file (``capi_roundtrip``'s own
+  check).  Their first encodes ran the process's first calls of MKL's
+  vector math on several threads at once, which could run a share of
+  ``torch.exp`` on another code path and change the bytes (ROADMAP F2): the
+  package's import makes that first call
+  (``test_import_settles_the_cpu_math_path``).  Against the JAX package's
   ``UhdrEncoder().encode()`` of the same numpy planes, the contract of
   test_torch_encode.py: coefficients at most 1 apart (rounding ties), a
   scan byte-equal where its coefficients agree and the file where they all
@@ -30,9 +35,11 @@ API and the JAX package, on the CPU (``UHDR_TPU_TORCH_DEVICE=cpu``).
 
 import ctypes
 import functools
+import os
 import pathlib
 import re
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -48,6 +55,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import fused as port_fused
 from libultrahdr_tpu_torch import testing
 from libultrahdr_tpu_torch.capi import abi, build
+
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 W, H = 128, 96
@@ -209,6 +220,47 @@ def test_c_threads_write_the_sequential_file(roundtrip):
     for i in range(2):
         assert (roundtrip["dir"] / f"o.t{i}.jpg").read_bytes() == \
             roundtrip["file"]
+
+
+# A fresh process: with "import" it imports the bridge (what the C ABI's
+# shim imports first) and only then asks MKL for its SSE4.2 path, which MKL
+# reads at the first call of its vector math; else it makes that first call
+# itself on one element (so that no two threads make it); prints a digest
+# of torch.exp over a fixed float32 ramp
+_MATH_PATH = """
+import hashlib, os, sys
+import numpy as np
+import torch
+if sys.argv[1] == "import":
+    import libultrahdr_tpu_torch.capi_bridge
+    os.environ["MKL_ENABLE_INSTRUCTIONS"] = "SSE4_2"
+else:
+    torch.exp(torch.zeros(1))
+x = torch.from_numpy(np.linspace(-4.0, 4.0, 36864, dtype=np.float32))
+print(hashlib.sha256(torch.exp(x).numpy().tobytes()).hexdigest())
+"""
+
+
+def _math_path(how: str, **env) -> str:
+    base = {k: v for k, v in os.environ.items()
+            if k != "MKL_ENABLE_INSTRUCTIONS"}
+    return subprocess.run([sys.executable, "-c", _MATH_PATH, how],
+                          cwd=REPO, env=base | env, capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def test_import_settles_the_cpu_math_path():
+    """F2's cause, shown without relying on the race: MKL chooses its
+    vector math's code path at the first call, and two threads making that
+    first call together could run a share of the elements on another path
+    (other rounding), so two concurrent first encodes wrote different
+    bytes.  After the package's import the choice is made: asking MKL for
+    another path then changes nothing, while the same request before the
+    first call does (the probe sees the path)."""
+    assert torch.backends.mkl.is_available()
+    default = _math_path("plain")
+    assert _math_path("plain", MKL_ENABLE_INSTRUCTIONS="SSE4_2") != default
+    assert _math_path("import") == default
 
 
 def _layouts(cfg):

@@ -22,6 +22,10 @@ from libultrahdr_tpu_torch import jpegr as port_jpegr
 from libultrahdr_tpu_torch.container import xmp as port_xmp
 from libultrahdr_tpu_torch.errors import UhdrError as PortUhdrError
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 PORT = pathlib.Path(__file__).resolve().parents[1] / "libultrahdr_tpu_torch"
 
 

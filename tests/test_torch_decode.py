@@ -42,6 +42,10 @@ from libultrahdr_tpu_torch import testing
 from libultrahdr_tpu_torch.jpeg import dct as port_dct
 from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 136, 72          # MCU padding on both axes; divisible by the scale 4
 CONFIGS = {
     "default": {},

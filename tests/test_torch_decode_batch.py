@@ -37,6 +37,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import jpegr as port_jpegr
 from libultrahdr_tpu_torch import testing
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 CT = {ColorTransfer.HLG: port.ColorTransfer.HLG,
       ColorTransfer.PQ: port.ColorTransfer.PQ,
       ColorTransfer.LINEAR: port.ColorTransfer.LINEAR}

@@ -50,6 +50,10 @@ from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpeg.encoder import JpegEncoder
 from libultrahdr_tpu_torch.ops import idw as port_idw
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 Image = pytest.importorskip("PIL.Image")
 
 W, H = 136, 72

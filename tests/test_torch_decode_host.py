@@ -42,6 +42,10 @@ from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpeg import native as port_native
 from libultrahdr_tpu_torch.jpeg.encoder import JpegEncoder
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 128, 96
 CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
 OUTS = ("HLG", "PQ", "LINEAR")

@@ -53,6 +53,10 @@ from libultrahdr_tpu_torch import testing
 from libultrahdr_tpu_torch.jpeg.decoder import parse_jpeg
 from libultrahdr_tpu_torch.ops import effects_device as port_fx
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 96, 64
 Fmt, CT = port.ImgFmt, port.ColorTransfer
 OUTPUTS = {"HLG": (CT.HLG, Fmt.RGBA1010102), "PQ": (CT.PQ, Fmt.RGBA1010102),

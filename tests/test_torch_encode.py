@@ -32,6 +32,10 @@ from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpeg import device_entropy as port_de
 from libultrahdr_tpu_torch.jpeg import pack_kernel as port_pk
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 130, 66
 CONFIGS = {
     "default": {},

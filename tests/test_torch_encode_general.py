@@ -51,6 +51,10 @@ from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpeg import encoder as port_encoder
 from libultrahdr_tpu_torch.ops import gainmap as port_gainmap
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 72, 40
 CPU = torch.device("cpu")
 Fmt, CG, CT = port.ImgFmt, port.ColorGamut, port.ColorTransfer

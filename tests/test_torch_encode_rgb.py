@@ -49,6 +49,10 @@ from libultrahdr_tpu_torch.ops import gainmap as port_gainmap
 from libultrahdr_tpu_torch.ops import pixel as port_pixel
 from libultrahdr_tpu_torch.ops import tonemap as port_tonemap
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 131, 67
 CPU = torch.device("cpu")
 Fmt, CG, CT = port.ImgFmt, port.ColorGamut, port.ColorTransfer

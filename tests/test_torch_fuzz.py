@@ -36,6 +36,10 @@ from libultrahdr_tpu_torch.jpeg import decoder as port_decoder
 from libultrahdr_tpu_torch.jpegr import JpegR
 from libultrahdr_tpu_torch import types as port_types
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # seeded mutants of each target's seeds (beside both committed corpora)
 MUTANTS = {"scan": 120, "iso": 150, "xmp": 120, "icc": 120,

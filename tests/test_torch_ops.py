@@ -32,6 +32,10 @@ from libultrahdr_tpu_torch.ops import gainmap as port_gainmap
 from libultrahdr_tpu_torch.ops import pixel as port_pixel
 from libultrahdr_tpu_torch.ops import tonemap as port_tonemap
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 SIZES = [(64, 48), (130, 66)]
 CPU = torch.device("cpu")
 

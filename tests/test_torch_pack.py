@@ -29,6 +29,10 @@ from libultrahdr_tpu_torch.jpeg import pack_kernel as port_pk
 from libultrahdr_tpu_torch.jpeg.tables import (AC_CHROMA, AC_LUMA, DC_CHROMA,
                                                DC_LUMA)
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 S420 = ((2, 2), (1, 1), (1, 1))
 S444 = ((1, 1), (1, 1), (1, 1))
 S400 = ((1, 1),)

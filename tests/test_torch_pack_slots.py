@@ -35,6 +35,10 @@ from libultrahdr_tpu_torch.jpeg import device_entropy as port_de
 from libultrahdr_tpu_torch.jpeg import native as port_native
 from libultrahdr_tpu_torch.jpeg import pack_kernel as port_pk
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 S420 = ((2, 2), (1, 1), (1, 1))
 S444 = ((1, 1), (1, 1), (1, 1))
 S400 = ((1, 1),)

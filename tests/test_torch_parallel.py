@@ -42,6 +42,10 @@ from libultrahdr_tpu_torch.jpeg.tables import (AC_CHROMA, AC_LUMA, DC_CHROMA,
 from libultrahdr_tpu_torch.ops import apply as apply_ops, idw
 from libultrahdr_tpu_torch.parallel import batch
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 CPU = torch.device("cpu")
 CG, CT = port.ColorGamut, port.ColorTransfer
 

@@ -36,6 +36,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import fused as port_fused
 from libultrahdr_tpu_torch import testing
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 CONFIGS = {
     "default": {},
     "benchmark": {"map_dimension_scale_factor": 4,

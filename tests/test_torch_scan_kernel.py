@@ -40,6 +40,10 @@ from libultrahdr_tpu_torch.jpeg.tables import (STD_CHROMA_QUANT,
                                                STD_LUMA_QUANT, ZIGZAG_ORDER,
                                                scaled_quant_table)
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 F32 = np.float32
 GROUPS, STRIP, T_ROW = 32, 31, 72
 

@@ -51,6 +51,10 @@ from libultrahdr_tpu_torch.jpeg.encoder import JpegEncoder
 from libultrahdr_tpu_torch.ops import colors as port_colors
 from libultrahdr_tpu_torch.ops import effects_device as port_effects
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 CG, CT, Fmt = port.ColorGamut, port.ColorTransfer, port.ImgFmt
@@ -94,10 +98,10 @@ EXCLUDED = {
 }
 # the K-batch encode (libultrahdr_tpu/fused.py:2604-2700) is private
 # (_stitch_image_streams, _dispatch_api0_p010_batch,
-# _drain_api0_p010_batch), so no public name stands for it here; it is not
-# ported: on the card it made the pipelined encode slower than raw (PERF.md),
-# and the port's pipelined encode takes each image's wire instead
-# (ROADMAP.md Queue 1 item 12b)
+# _drain_api0_p010_batch), so no public name stands for it here; the port's
+# is fused._batches, fused._dispatch_batch and fused._join_p010, its stitch
+# ops/stitch_kernel.py (csrc/stitch_kernel.cu), held to the JAX package's
+# files in tests/test_torch_kbatch.py
 
 
 def _modules():

@@ -40,6 +40,10 @@ from libultrahdr_tpu_torch.jpeg import tables as port_tables
 from libultrahdr_tpu_torch.ops import colors as port_colors
 from libultrahdr_tpu_torch.ops import lut_parity as port_lut
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -33,6 +33,10 @@ from libultrahdr_tpu_torch import fused as pf
 from libultrahdr_tpu_torch import wire
 from libultrahdr_tpu_torch.jpeg import native as pn
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 256, 128
 _CARRIER = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16,
             np.dtype(np.int32): np.int32, np.dtype(np.int16): np.int16,

@@ -33,6 +33,10 @@ import libultrahdr_tpu_torch as port
 from libultrahdr_tpu_torch import fused, testing, wire
 from libultrahdr_tpu_torch.jpegr import JpegR
 
+from test_torch_jax_native import guard_jax_native
+
+guard_jax_native()
+
 W, H = 256, 128
 Fmt, CT = port.ImgFmt, port.ColorTransfer
 KNOBS = ("UHDR_TPU_WIRE", "UHDR_TPU_WIRE_API1", "UHDR_TPU_WIRE_DOWN")

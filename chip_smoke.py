@@ -85,6 +85,17 @@ held against the plain composition on its own inputs:
    base planes (a BT.709 SDR re-encoded as BT.601) and gain maps on the
    card against the CPU port, both presets and configurations.  Prints
    each request's ms and MP/s;
+4c. the fused gain map's clipped gains (the JAX package's compiled fused
+   programs code a clipped HLG gain 254, ``gainmap.encode_gain_folded``):
+   prints the float32 bits of log(max boost) on the CPU and the card (HLG,
+   PQ); encodes ``testing.photo_p010`` seeds 4, 6 and 8 (HLG) and a photo
+   with a band of bright, saturated patches (HLG and PQ) at 3840x2160
+   through ``UhdrEncoder`` in both configurations, one pack launch each;
+   then holds the fused route's map (``fused._onepass_gainmap``) on the
+   card, from the CPU's SDR planes, against the CPU's: every clipped
+   sample's code equal (HLG 254, PQ 255), the rest within 1 LSB on at most
+   1e-3 of the samples, and the SDR planes within the same contract.
+   Prints the clipped counts and codes and the phase's seconds;
 5. decodes the benchmark and the default file of phase 4 to HLG, PQ
    (RGBA1010102) and LINEAR (RGBAF16), each checked: the request launched
    the apply kernel exactly once, and its output is bit-identical to the
@@ -1126,6 +1137,107 @@ def main(argv=None) -> int:
     log("phase 4 small images: card == CPU port within 1 LSB on <= 1e-3 of "
         "the SDR and gain-map samples, P010, RGB and YUV444_10, both "
         "configurations")
+
+    # ---- phase 4c: the fused map's clipped gains -------------------------
+    # The JAX package's fused programs compile encode_gain with constant
+    # boosts, which XLA folds to log(gain) * c: a clipped HLG gain codes 254
+    # there.  The port's fused map computes that form
+    # (gainmap.encode_gain_folded); a clipped sample lands within an ulp of
+    # a code boundary, so the card's log must give the CPU's codes.
+    t4c = time.perf_counter()
+    bits = {}
+    for ct in (CT.HLG, CT.PQ):
+        mb = colors.reference_display_peak_nits(ct) / 203.0
+        bits[ct.name] = [f"{np.array(v, np.float32).view(np.uint32):08x}"
+                         for v in (torch.log(torch.tensor(
+                             mb, dtype=torch.float32, device=d)).item()
+                                   for d in ("cpu", dev))]
+    log("phase 4c float32 bits of log(max boost), CPU / card: " + ", ".join(
+        f"{k} {a} / {b}" for k, (a, b) in bits.items()) + f" | {card}")
+
+    def clipped_highlights(ct):
+        """``testing.photo_p010`` with a band of bright, saturated patches
+        whose gains clip in both configurations, labelled `ct`."""
+        base = testing.photo_p010(w, h)
+        y, uv = (np.array(p, np.uint16) for p in base.planes[:2])
+        rows, x0, x1 = slice(h // 16, h // 8), w // 16, w * 15 // 16
+        y[2 * rows.start:2 * rows.stop, x0:x1] = 1000 << 6
+        cols = ((300, 800), (800, 300), (250, 250), (800, 800), (512, 512))
+        step = (x1 - x0) // len(cols) // 2 * 2
+        for i, (u, v) in enumerate(cols):
+            c0 = x0 // 2 * 2 + i * step
+            uv[rows, c0:c0 + step:2] = u << 6
+            uv[rows, c0 + 1:c0 + step:2] = v << 6
+        return port.RawImage(Fmt.P010, CG.BT2100, ct, port.ColorRange.FULL,
+                             w, h, [y, uv])
+
+    fold_imgs = {f"photo seed {s} HLG": testing.photo_p010(w, h, seed=s)
+                 for s in (4, 6, 8)}
+    for ct in (CT.HLG, CT.PQ):
+        fold_imgs[f"clipped highlights {ct.name}"] = clipped_highlights(ct)
+    zero_counts()
+    for what, fimg in fold_imgs.items():
+        for cfg, kw in configs.items():
+            encode(fimg, kw, f"{what} {cfg}", phase="4c")
+    fold_launches = read_counts("clipped-gain encode",
+                                {"pack_scan": 2 * len(fold_imgs),
+                                 "forward_dct": 4 * len(fold_imgs)})
+    use_base_cg = fused._use_base_cg(CG.DISPLAY_P3, CG.BT2100,
+                                     port.JpegR(device=dev).write_xmp)
+    for what, fimg in fold_imgs.items():
+        ct = CT(fimg.ct)
+        mb = np.float32(colors.reference_display_peak_nits(ct) / 203.0)
+        planes = [np.asarray(p, np.uint16) for p in fimg.planes[:2]]
+        for cfg, kw in configs.items():
+            stage = dict(cg=CG.BT2100, ct=ct, rng=port.ColorRange.FULL,
+                         gamma=1.0, use_base_cg=use_base_cg, **kw)
+            cpu_px = fused.api0_p010_pixels(
+                *fused.upload_planes(planes, torch.device("cpu")), **stage)
+            card_px = [t.cpu().numpy() for t in fused.api0_p010_pixels(
+                *fused.upload_planes(planes, dev), **stage)]
+            for a, b in zip(card_px[:3], cpu_px[:3]):
+                close_u8(a, b.numpy(), f"4c {what} {cfg} SDR")
+            # the map stage on each device from the CPU's SDR planes (one
+            # u8 step of a dark SDR sample moves its gain by several steps)
+            maps, clipped = {}, None
+            for d in ("cpu", dev):
+                hdr = pixel.unpack_p010(
+                    *fused.upload_planes(planes, torch.device(d)),
+                    port.ColorRange.FULL, h, w)
+                sdr = pixel.unpack_yuv8(*(p.to(d) for p in cpu_px[:3]),
+                                        2, 2, h, w)
+                maps[d] = fused._onepass_gainmap(
+                    sdr, hdr, sdr_fmt=Fmt.YUV420, hdr_fmt=Fmt.P010,
+                    cg=CG.BT2100, ct=ct, scale=kw["scale"],
+                    multichannel=kw["multichannel"], gamma=1.0,
+                    use_base_cg=use_base_cg).cpu().numpy()
+                if d == "cpu":
+                    s_n, h_n = gainmap._nits_pair(gainmap._prep(
+                        sdr, hdr, Fmt.YUV420, Fmt.P010, CG.DISPLAY_P3,
+                        CG.BT2100, ct, kw["scale"], False, use_base_cg),
+                        kw["multichannel"], False, CG.DISPLAY_P3)
+                    clipped = (torch.where(
+                        s_n > 0, h_n / torch.clamp(s_n, min=1e-37), 1.0)
+                        >= mb).numpy()
+            cpu_map, card_map = maps["cpu"], maps[dev]
+            codes = np.unique(cpu_map[clipped]).tolist()
+            want = [254] if ct == CT.HLG else [255]
+            if not clipped.any() or codes != want:
+                raise AssertionError(f"4c {what} {cfg}: {clipped.sum()} "
+                                     f"clipped samples, codes {codes}")
+            if not np.array_equal(card_map[clipped], cpu_map[clipped]):
+                raise AssertionError(f"4c {what} {cfg}: the card's code of "
+                                     "a clipped sample differs from the "
+                                     "CPU's")
+            close_u8(card_map, cpu_map, f"4c {what} {cfg} gain map")
+            own = card_px[3] != cpu_map
+            log(f"phase 4c {what} {cfg}: {int(clipped.sum())} of "
+                f"{clipped.size} samples clipped, coded {codes} on the CPU "
+                f"and the card; the rest {int((card_map != cpu_map).sum())}"
+                f" samples apart; the card's map from its own SDR "
+                f"{int(own.sum())} apart ({int(own[clipped].sum())} "
+                "clipped)")
+    log(f"phase 4c: {time.perf_counter() - t4c:.1f} s | {card}")
 
     # ---- phase 4b: the API-1..4 encodes ----------------------------------
     # API-1 takes the P010 HDR of phase 4 with the port's own tone map of
@@ -2821,6 +2933,7 @@ def main(argv=None) -> int:
     from libultrahdr_tpu_torch.ops import wire_kernel as wk
     before_wires = {
         "pack_scan": p010_launches["pack_scan"] + rgb_launches["pack_scan"]
+        + fold_launches["pack_scan"]
         + api1_launches["pack_scan"] + compressed_launches["pack_scan"]
         + pipe_launches + general_input_launches["pack_scan"]
         + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
@@ -4036,7 +4149,7 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
-               + api1_launches["pack_scan"]
+               + fold_launches["pack_scan"] + api1_launches["pack_scan"]
                + compressed_launches["pack_scan"] + pipe_launches
                + general_input_launches["pack_scan"]
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]

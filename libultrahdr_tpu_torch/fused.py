@@ -174,13 +174,15 @@ def _onepass_gainmap(sdr_vals, hdr_vals, *, sdr_fmt: ImgFmt, hdr_fmt: ImgFmt,
                      cg: ColorGamut, ct: ColorTransfer, scale: int,
                      multichannel: bool, gamma: float, use_base_cg: bool):
     """The API-0 one-pass gain map against the tone-mapped (Display-P3)
-    SDR."""
+    SDR, quantised as the JAX package's compiled fused programs do
+    (``gainmap.encode_gain_folded``)."""
     max_boost = colors.reference_display_peak_nits(ct) / colors.SDR_WHITE_NITS
     return gainmap_ops.generate_gainmap_onepass(
         sdr_vals, hdr_vals, sdr_fmt=sdr_fmt, hdr_fmt=hdr_fmt,
         sdr_cg=ColorGamut.DISPLAY_P3, hdr_cg=cg, ct=ct, scale=scale,
         multichannel=multichannel, gamma=gamma, use_luminance=False,
-        sdr_is_601=False, use_base_cg=use_base_cg, max_boost=max_boost)
+        sdr_is_601=False, use_base_cg=use_base_cg, max_boost=max_boost,
+        folded=True)
 
 
 def api0_p010_pixels(y, uv, *, cg: ColorGamut, ct: ColorTransfer,
@@ -356,7 +358,8 @@ def _api1_block_buffers(hdr_planes, sdr_planes, *, hdr_fmt: ImgFmt,
         max_boost = (colors.reference_display_peak_nits(ct)
                      / colors.SDR_WHITE_NITS)
         gm = gainmap_ops.generate_gainmap_onepass(
-            sdr_vals, hdr_vals, gamma=gamma, max_boost=max_boost, **common)
+            sdr_vals, hdr_vals, gamma=gamma, max_boost=max_boost,
+            folded=True, **common)
         return [base, _gainmap_scan(gm, multichannel, map_quality)]
     gains, gmin, gmax = gainmap_ops.gainmap_float_pass(sdr_vals, hdr_vals,
                                                        **common)

@@ -14,6 +14,7 @@ quantisation on the device.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -116,19 +117,67 @@ def encode_gain(sdr_nits: torch.Tensor, hdr_nits: torch.Tensor,
     return torch.clamp(norm_g * 255.0, 0.0, 255.0).to(torch.uint8)
 
 
+def folded_gain_scale(max_boost: float, gamma: float) -> np.float32:
+    """The one float32 multiplier of log(gain) that XLA's algebraic
+    simplifier leaves of ``encode_gain`` when min_boost (1), max_boost and
+    gamma are compile-time constants, as in every fused encode of the JAX
+    package.  ``jnp.log2(x)`` is ``log(x) / log(2)``; log2(1) folds to 0 and
+    the subtractions of it go; each divide by a constant becomes a multiply
+    by its float32 reciprocal; ``pow(norm, 1)`` goes; then the constant
+    multiplies reassociate into one:
+
+        gamma 1:  log(g) * ((1/ln2) * ((1/log2max) * 255))
+        else:     log(g) * ((1/ln2) * (1/log2max)), then the power, * 255
+
+    with ln2 = log(2) and log2max = log(max_boost) / ln2 folded in float32
+    (HLG: 159.919785 and 0.627136469, PQ: 65.4326935 and 0.2565988)."""
+    f = np.float32
+    one = f(1.0)
+    ln2 = f(math.log(2.0))
+    scale = one / (f(math.log(float(f(max_boost)))) / ln2)
+    if f(gamma) == one:
+        scale = scale * f(255.0)
+    return (one / ln2) * scale
+
+
+def encode_gain_folded(sdr_nits: torch.Tensor, hdr_nits: torch.Tensor,
+                       max_boost: float, gamma: float) -> torch.Tensor:
+    """``encode_gain`` with min_boost 1 as the JAX package's compiled fused
+    programs compute it: log(gain) times ``folded_gain_scale``, then for
+    gamma != 1 the power as XLA simplifies it (x*x for 2, x*(x*x) for 3)
+    and * 255.  A clipped HLG sample (gain == max_boost, gamma 1) codes
+    254 (254.99998 truncated) where the unfolded form writes 255."""
+    f32 = dict(dtype=torch.float32, device=sdr_nits.device)
+    gain = torch.where(sdr_nits > 0.0,
+                       hdr_nits / torch.clamp(sdr_nits, min=1e-37), 1.0)
+    gain = torch.minimum(torch.maximum(gain, torch.ones((), **f32)),
+                         torch.full((), max_boost, **f32))
+    x = torch.log(gain) * folded_gain_scale(max_boost, gamma)
+    g = np.float32(gamma)
+    if g != 1.0:
+        x = (x * x if g == 2.0 else x * (x * x) if g == 3.0
+             else torch.pow(x, float(g))) * 255.0
+    return torch.clamp(x, 0.0, 255.0).to(torch.uint8)
+
+
 def generate_gainmap_onepass(sdr_vals, hdr_vals, *, sdr_fmt, hdr_fmt,
                              sdr_cg, hdr_cg, ct, scale: int,
                              multichannel: bool, gamma: float,
                              use_luminance: bool, sdr_is_601: bool,
-                             use_base_cg: bool,
-                             max_boost: float) -> torch.Tensor:
+                             use_base_cg: bool, max_boost: float,
+                             folded: bool = False) -> torch.Tensor:
     """One-pass (REALTIME) gain map (jpegr.cpp:712-828): the metadata is
     fixed beforehand (max_content_boost = hdr_white / 203 passed in as
-    `max_boost`, min 1).  Returns (C, mh, mw) uint8."""
+    `max_boost`, min 1).  `folded` quantises as the JAX package's fused
+    programs do, which compile the boosts and gamma in as constants
+    (``encode_gain_folded``); the general path's map, like its JAX twin's,
+    is unfolded.  Returns (C, mh, mw) uint8."""
     prep = _prep(sdr_vals, hdr_vals, sdr_fmt, hdr_fmt, sdr_cg, hdr_cg, ct,
                  scale, sdr_is_601, use_base_cg)
     sdr_nits, hdr_nits = _nits_pair(prep, multichannel, use_luminance,
                                     sdr_cg)
+    if folded:
+        return encode_gain_folded(sdr_nits, hdr_nits, max_boost, gamma)
     return encode_gain(sdr_nits, hdr_nits, 1.0, max_boost, gamma)
 
 

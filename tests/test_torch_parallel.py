@@ -12,7 +12,9 @@ Contracts:
   the bounds within 1e-6 relative (the box mean and the reductions may
   reassociate per shard shape, as in tests/test_parallel.py);
 - port against JAX: u8 planes and maps within 1 on at most 1e-3 of the
-  samples, bounds within 1e-6 relative (tests/test_torch_ops.py), the
+  samples of the jitted program (whose one-pass map the port's mirrors:
+  tests/test_torch_gainmap_fold.py), bounds within 1e-6 relative
+  (tests/test_torch_ops.py), the
   IDW bit for bit, scans byte for byte on the same coefficients,
   the apply within ``testing.check_decoded_close``.
 
@@ -86,14 +88,15 @@ def _assert_u8_close(a, b, share=1e-3):
     assert (diff > 0).mean() <= share
 
 
-def _assert_map_close(got, jitted, unjitted):
-    """A u8 gain map against the JAX package's jitted program: within 1,
-    on no larger share of the samples than the JAX functions run without
-    jit differ from the same program (or 1e-3).  XLA fuses and reorders
-    the float ops, and on a flat map one ulp moves encode_gain's truncation
-    for most samples (a 32x64 photo_p010 at seed 4: 71%)."""
-    own = (_np(unjitted) != _np(jitted)).mean()
-    _assert_u8_close(got, jitted, max(1e-3, own))
+def _assert_map_close(got, jitted):
+    """A u8 gain map against the JAX package's jitted program: within 1 on
+    at most 1e-3 of the samples.  The JAX functions run without jit are no
+    reference for the one-pass map: under jit XLA folds encode_gain's
+    constant boosts into log(gain) * 159.919785, which codes a clipped HLG
+    gain 254 where the unfolded form writes 255 (71% of a flat 32x64
+    photo_p010 map at seed 4); the port's fused map computes the folded
+    form (``gainmap.encode_gain_folded``)."""
+    _assert_u8_close(got, jitted)
 
 
 def _assert_bounds_close(a, b):
@@ -155,13 +158,21 @@ def _unjitted(y, uv, two_pass, **kw):
 
 def test_noise_pixels_equal_unjitted_jax():
     """On uniform noise the port's one-pass pixel step equals the JAX
-    package's step function run without jit, bit for bit; its two-pass
-    step too, but for the bounds (log2 differs by an ulp)."""
+    package's step function run without jit, bit for bit, but for the gain
+    map's clipped samples: there the port writes the compiled program's
+    254 (``gainmap.encode_gain_folded``) for the un-jitted 255, and so
+    equals the jitted step bit for bit.  Its two-pass step equals the
+    un-jitted one too, but for the bounds (log2 differs by an ulp)."""
     y, uv = _p010_batch(1, 64, 128, seed=2)
     kw = dict(scale=2, multichannel=True)
     got = parallel.encode_core_p010(_t(y[0]), _t(uv[0]), **kw)
-    for g, w in zip(got, _unjitted(y[0], uv[0], False, **kw)):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = [np.asarray(w) for w in _unjitted(y[0], uv[0], False, **kw)]
+    assert (want[3] == 255).sum() > 1000         # the noise clips often
+    want[3] = np.where(want[3] == 255, 254, want[3]).astype(np.uint8)
+    for g, w, j in zip(got, want, jax_parallel.encode_core_p010(
+            y[0], uv[0], **kw)):
+        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
     got = parallel.encode_core_p010_twopass(_t(y[0]), _t(uv[0]), **kw)
     want = _unjitted(y[0], uv[0], True, **kw)
     for g, w in zip(got[:4], want[:4]):
@@ -182,8 +193,7 @@ def test_single_image_cores_match_jax(two_pass):
     assert len(got) == len(want)
     for g, w in zip(got[:3], want[:3]):
         _assert_u8_close(g, w)
-    _assert_map_close(got[3], want[3], _unjitted(y[0], uv[0], two_pass,
-                                                 **kw)[3])
+    _assert_map_close(got[3], want[3])
     for g, w in zip(got[4:], want[4:]):
         _assert_bounds_close(g, w)
 
@@ -195,8 +205,7 @@ def test_encode_batch_matches_jax_and_cores():
     for g, w in zip(got[:3], want[:3]):
         _assert_u8_close(g, w)
     for i in range(3):
-        _assert_map_close(got[3][i], want[3][i], _unjitted(
-            y[i], uv[i], False, scale=2, multichannel=False)[3])
+        _assert_map_close(got[3][i], want[3][i])
         one = parallel.encode_core_p010(_t(y[i]), _t(uv[i]), scale=2)
         for g, o in zip(got, one):
             assert torch.equal(g[i], o)

@@ -14,9 +14,10 @@ raw SDR, both presets) and one API-2, API-3 and API-4 encode through
 ``UhdrDecoder(device="cuda")`` (HLG, PQ, LINEAR and SRGB) and through the
 batched and microbatched ``decode_to_device``, the general decode path
 (fractional and resized gain maps, a grayscale and a progressive base,
-``use_fused=False``), the host decode engine ``JpegR.decode_host``, and
-the slot-input block-pack and tile-pack routes on the encode's scans, in
-phases that each
+``use_fused=False``), the host decode engine ``JpegR.decode_host``,
+the slot-input block-pack and tile-pack routes on the encode's scans, and
+(at 256x160) the reference library's own files and inputs, in phases that
+each
 print lines and let any failure propagate (exit code != 0).  Every path is
 driven with all kernel launch counts set to 0 just before it and read just
 after (the scan kernel's too: two launches a fused encode, one a plane of
@@ -263,6 +264,32 @@ held against the plain composition on its own inputs:
    the K-batch route (K = 2, 8), the per-image wire route
    (``UHDR_TPU_BATCH_K=1``) and the raw pipelined route, in turns, and the
    stitch alone by CUDA events beside its bound;
+23. reference interop on the card, over the 8 files of ``tests/goldens/``
+   (written once by the reference library: libjpeg-turbo's baseline
+   streams without restart markers, ISO or XMP metadata) at their own
+   256x160: (a) each reference JPEG_R through ``UhdrDecoder(device="cuda")``
+   to HLG, PQ, LINEAR and SRGB, ``JpegR.decode_to_device`` microbatched and
+   per-image, ``JpegR.decode_host`` and the general path
+   (``use_fused=False``), and all 8 through one ``decode_to_device_batch``
+   (mixed configurations): each output >= 60 dB against the reference's own
+   raster and within ``testing.check_decoded_close`` of the port's CPU
+   decode of the same bytes (SRGB equal; the host engine >= 55 dB a
+   channel against the card's decode, the JAX package's host-vs-device
+   gate), the device-resident routes equal to ``UhdrDecoder``'s; (b) each
+   golden's raw input (P010, RGBA1010102, RGBAF16) encoded by
+   ``UhdrEncoder(device="cuda")`` at the golden's configuration and metadata
+   kind, its card decode >= 48 dB against the reference's decode and no
+   more than 12 dB below the anchor (capped at 60 dB), the file equal to
+   the port's CPU encode of the same input (or each JPEG's scan equal where
+   its coefficients are, the others within 1 in at most 64 blocks of each
+   1,000 samples' worth); (c) the effects golden's 9 queues through the
+   host editor (``UhdrDecoder``, SRGB and HLG) and through
+   ``decode_to_device(effects=...)``, at the CPU tests' gates.  Every apply
+   and pack launch of the phase is recorded with its inputs and held
+   against its plain version (bit-identical; the pack's live words and
+   block lengths), every scan it builds against the plain composition.
+   Prints a line a file and route (PSNR, route, launches, seconds), one an
+   encode, one an effect queue;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -487,7 +514,6 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = card.splitlines()[0]
-    name = torch.cuda.get_device_name(0)
     log(f"phase 1 card: torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
         "name and power limit (nvidia-smi):")
@@ -4086,6 +4112,350 @@ def main(argv=None) -> int:
     log(f"phase 22 the K-batch route: {kb_stitch} stitch "
         f"launches on its paths; {time.perf_counter() - t22:.1f} s | {card}")
 
+    # ---- phase 23: reference interop on the card --------------------------
+    # the 8 files of tests/goldens/ (written once by the reference library,
+    # tools/make_reference_goldens.py: libjpeg-turbo's baseline streams, no
+    # restart markers, ISO or XMP metadata) at their own 256x160: (a) each
+    # file decoded on every route, held against the reference's own raster
+    # and the port's CPU decode; (b) each golden's raw input encoded on the
+    # card at the golden's configuration, its decode held against the
+    # reference's; (c) the effects golden's 9 queues, through the host editor
+    # and on the device.  Every apply and pack launch of the phase is
+    # recorded with its inputs and held against its plain version; every
+    # scan the phase builds is, as everywhere, at each read_counts.
+    t23 = time.perf_counter()
+    applied, packed = [], []
+    real_apply_gainmap = ak.apply_gainmap
+    real_pack_launch = pk.PACK_KERNEL.launch
+
+    def recording_apply(sdr_yuv, gain, meta_rows, weight, **kw):
+        out = real_apply_gainmap(sdr_yuv, gain, meta_rows, weight, **kw)
+        if sdr_yuv.device.type == dev.type:
+            applied.append((sdr_yuv.clone(), gain.clone(),
+                            np.array(meta_rows, np.float32), weight, kw,
+                            out.clone()))
+        return out
+
+    def recording_pack_launch(stream, dc_diff, is_luma, scratch, blen,
+                              words):
+        real_pack_launch(stream, dc_diff, is_luma, scratch, blen, words)
+        packed.append((stream.clone(), dc_diff.clone(), is_luma.clone(),
+                       scratch.clone(), blen.clone(), words.clone()))
+
+    ak.apply_gainmap = recording_apply
+    pk.PACK_KERNEL.launch = recording_pack_launch
+    p23_launches = {}
+
+    def start23():
+        """Before a phase-23 path: the launch counts zeroed, nothing
+        recorded."""
+        zero_counts()
+        applied.clear()
+        packed.clear()
+
+    def read23(path: str, want: dict) -> str:
+        """read_counts of a phase-23 path, then every apply and pack launch
+        it made held against its plain version on the same inputs on the
+        card (bit-identical outputs; the pack's live words and block
+        lengths torch.equal)."""
+        got = read_counts(f"phase 23 {path}", want)
+        add(p23_launches, got)
+        torch.cuda.synchronize()
+        if (len(applied), len(packed)) != (got["apply_gainmap"],
+                                           got["pack_scan"]):
+            raise AssertionError(
+                f"phase 23 {path}: {len(applied)} apply and {len(packed)} "
+                f"pack launches recorded, {got['apply_gainmap']} and "
+                f"{got['pack_scan']} counted")
+        for i, (sdr_yuv, gain, rows, weight, kw, out) in enumerate(applied):
+            bit_identical(out, ak.apply_gainmap_plain(sdr_yuv, gain, rows,
+                                                      weight, **kw),
+                          f"phase 23 {path}: apply launch {i} vs plain")
+        for i, (stream, dc_diff, is_luma, scratch, blen, words) in \
+                enumerate(packed):
+            pw, pb = pk.pack_scan_plain(stream, dc_diff, is_luma)
+            tensors_equal((words[:int(scratch[1])], blen), (pw, pb),
+                          f"phase 23 {path}: pack launch {i} vs plain")
+        n = f"{len(applied)} apply and {len(packed)} pack launches"
+        applied.clear()
+        packed.clear()
+        return n
+
+    fmt23 = {**fmt_of, CT.SRGB: Fmt.RGBA8888}
+    # transfer -> the goldens' raster of it and its PSNR
+    raster23 = {CT.HLG: ("dec_hlg_1010102", testing.psnr),
+                CT.PQ: ("dec_pq_1010102", testing.psnr),
+                CT.LINEAR: ("dec_linear_f16", testing.psnr),
+                CT.SRGB: ("dec_srgb_8888", testing.psnr_8888)}
+    hdr23 = (CT.HLG, CT.PQ, CT.LINEAR)
+    names23 = testing.golden_names()
+    goldens = {n: testing.load_golden(n) for n in names23}
+    files23 = {n: bytes(z["jpegr"]) for n, (z, _) in goldens.items()}
+    # the effects golden holds the bytes of one of the others, whose
+    # rasters it has not: it is decoded against that one's
+    fx_z, _ = testing.load_golden(testing.EFFECTS_GOLDEN)
+    twin = [n for n in names23 if files23[n] == bytes(fx_z["jpegr"])]
+    if len(twin) != 1:
+        raise AssertionError(f"phase 23: the effects golden's bytes are "
+                             f"those of {twin}, not of one golden")
+    files23[testing.EFFECTS_GOLDEN] = bytes(fx_z["jpegr"])
+    raster_of = {n: goldens[n][0] for n in names23}
+    raster_of[testing.EFFECTS_GOLDEN] = goldens[twin[0]][0]
+    cpu23 = port.JpegR(device="cpu")
+    jr23 = port.JpegR(device="cuda")
+    on_cpu = {(n, ct): np.asarray(cpu23.decode(d, ct)[0].planes[0])
+              for n, d in files23.items() for ct in raster23}
+    psnr23 = {}
+
+    def gate23(gname, route, ct, got, gate=testing.DECODE_GATE_DB):
+        """A decode of file `gname` on `route` against the reference's
+        raster (>= `gate`) and the port's CPU decode of the same bytes
+        (SRGB equal, the HDR outputs within check_decoded_close; the host
+        engine the JAX package's host-vs-device gate, >= 55 dB a channel,
+        against the card's decode); returns its PSNR."""
+        got = testing.host_packed(got) if ct != CT.SRGB \
+            else np.asarray(got, np.uint32)
+        key, psnr = raster23[ct]
+        db = psnr(got, raster_of[gname][key])
+        if not db >= gate:
+            raise AssertionError(f"phase 23 {gname} {route} {ct.name}: "
+                                 f"{db:.2f} dB against the reference's "
+                                 f"raster, gate {gate}")
+        want = on_cpu[gname, ct]
+        if ct == CT.SRGB:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"phase 23 {gname} {route} SRGB != the "
+                                     "CPU decode")
+        elif route == "decode_host":
+            db_c = channel_psnr(got, psnr23[gname, "UhdrDecoder", ct][1])
+            if min(db_c) < 55.0:
+                raise AssertionError(f"phase 23 {gname} decode_host "
+                                     f"{ct.name}: {db_c} dB a channel "
+                                     "against the card's decode")
+        else:
+            testing.check_decoded_close(got, want, ct,
+                                        f"phase 23 {gname} {route} {ct.name}")
+        psnr23[gname, route, ct] = (db, got)
+        return db
+
+    # (a) every route of the decode
+    taken = {r: f"fused, within check_decoded_close of the CPU's{t}"
+             for r, t in (
+                 ("UhdrDecoder", " (SRGB equal)"),
+                 ("decode_to_device microbatched", ", == UhdrDecoder"),
+                 ("decode_to_device per-image", ", == UhdrDecoder"))}
+    taken["decode_host"] = ("the host engine, >= 55 dB a channel against the "
+                            "card's UhdrDecoder decode")
+    taken["general path"] = ("general (use_fused=False), within "
+                             "check_decoded_close of the CPU's fused decode")
+    for gname, data in files23.items():
+        parsed = jr23._parse_jpegr(data)
+        plan = jr23._fused_plan(parsed[1], parsed[3], *parsed[4:])
+        if plan is None:
+            raise AssertionError(f"phase 23 {gname}: the fused route does "
+                                 "not take the reference's file")
+        for route in ("UhdrDecoder", "decode_to_device microbatched",
+                      "decode_to_device per-image", "decode_host",
+                      "general path"):
+            start23()
+            jr_r = port.JpegR(device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs23 = {}
+            for ct in (raster23 if route == "UhdrDecoder" else hdr23):
+                if route == "UhdrDecoder":
+                    dec = port.UhdrDecoder(device="cuda")
+                    dec.set_image(data)
+                    dec.set_out_color_transfer(ct)
+                    dec.set_out_img_format(fmt23[ct])
+                    outs23[ct] = dec.decode().planes[0]
+                elif route == "decode_host":
+                    outs23[ct] = jr_r.decode_host(data, ct)[0].planes[0]
+                elif route == "general path":
+                    outs23[ct] = jr_r.decode(data, ct,
+                                             use_fused=False)[0].planes[0]
+                else:
+                    outs23[ct] = jr_r.decode_to_device(
+                        data, ct, microbatch="micro" in route)[0]
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            if "micro" in route and jr_r._mb.retries:
+                raise AssertionError(f"phase 23 {gname}: the microbatcher "
+                                     "retried a request alone")
+            n_apply = 0 if route == "decode_host" else 3
+            checked = read23(f"{gname} {route}", {
+                "apply_gainmap": n_apply,
+                "apply_linear": n_apply // 3})
+            dbs = {ct: gate23(gname, route, ct, out)
+                   for ct, out in outs23.items()}
+            if route.startswith("decode_to_device"):
+                for ct in hdr23:
+                    bit_identical(outs23[ct],
+                                  psnr23[gname, "UhdrDecoder", ct][1],
+                                  f"phase 23 {gname} {route} {ct.name} vs "
+                                  "UhdrDecoder")
+            log(f"phase 23a {gname} {route}: "
+                + ", ".join(f"{ct.name} {db:.2f} dB" for ct, db in dbs.items())
+                + f" against the reference's raster; route {taken[route]}, "
+                f"{checked}; {s:.3f} s | {card}")
+
+    # one decode_to_device_batch over the 8 files (mixed configurations)
+    for ct in hdr23:
+        start23()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_b = port.JpegR(device="cuda").decode_to_device_batch(
+            list(files23.values()), ct)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        checked = read23(f"decode_to_device_batch {ct.name}",
+                         {"apply_gainmap": len(files23),
+                          "apply_linear": len(files23) * (ct == CT.LINEAR)})
+        dbs = []
+        for gname, (got, _) in zip(files23, outs_b):
+            dbs.append(gate23(gname, "decode_to_device_batch", ct, got))
+            bit_identical(got, psnr23[gname, "UhdrDecoder", ct][1],
+                          f"phase 23 batch {gname} {ct.name} vs UhdrDecoder")
+        log(f"phase 23a decode_to_device_batch {ct.name} of the "
+            f"{len(files23)} files: {min(dbs):.2f}-{max(dbs):.2f} dB against "
+            f"the reference's rasters, every output == UhdrDecoder's and the "
+            f"CPU decode's contract, {checked}; {s:.3f} s | {card}")
+
+    def same_where_coefficients_agree(gname, data, cpu_data) -> str:
+        """The card's file against the CPU's encode of the same input:
+        equal byte for byte, or each JPEG's scan equal where its
+        coefficients are; where a pixel
+        stage's ulp moved a u8 sample by one (the card-vs-CPU encode
+        contract, at most 1e-3 of the samples), a coefficient moves by at
+        most 1, in at most 64 blocks of each 1,000 samples' worth."""
+        if data == cpu_data:
+            return "== the CPU encode byte for byte"
+        moved = []
+        for part, (a, b) in enumerate(zip(
+                port.JpegR.extract_primary_and_gainmap(data),
+                port.JpegR.extract_primary_and_gainmap(cpu_data))):
+            ca = fused.decode_coefficients(a, jpeg_decoder.parse_jpeg(a))[0]
+            cb = fused.decode_coefficients(b, jpeg_decoder.parse_jpeg(b))[0]
+            diff = [np.abs(x.astype(np.int32) - y.astype(np.int32))
+                    for x, y in zip(ca, cb)]
+            if len(ca) != len(cb) or any(
+                    x.shape != y.shape for x, y in zip(ca, cb)):
+                raise AssertionError(f"phase 23 {gname} part {part}: other "
+                                     "planes than the CPU encode's")
+            if not any(d.any() for d in diff):
+                # (the headers may differ: the base's MPF holds the sizes)
+                if testing.scan_data(a) != testing.scan_data(b):
+                    raise AssertionError(f"phase 23 {gname} part {part}: the "
+                                         "CPU encode's coefficients, another "
+                                         "scan")
+                continue
+            blocks = sum(int(d.reshape(-1, 64).any(1).sum()) for d in diff)
+            n_blocks = sum(d.size // 64 for d in diff)
+            top = max(int(d.max()) for d in diff)
+            if top > 1 or blocks > 64e-3 * n_blocks:
+                raise AssertionError(f"phase 23 {gname} part {part}: {blocks}"
+                                     f" of {n_blocks} blocks differ from the "
+                                     f"CPU encode's, by up to {top}")
+            moved.append(f"part {part} {blocks} of {n_blocks} blocks within "
+                         "1 of the CPU encode's")
+        return "; ".join(moved) or "== the CPU encode"
+
+    # (b) the goldens' raw inputs encoded on the card at their config
+    enc23 = {}
+    for gname in names23:
+        z, cfg = goldens[gname]
+        start23()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with testing.golden_metadata(cfg):
+            data = testing.golden_encoder(z, cfg, "cuda").encode()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        checked = read23(f"{gname} encode", {"pack_scan": 1})
+        with testing.golden_metadata(cfg):
+            cpu_data = testing.golden_encoder(z, cfg, "cpu").encode()
+        moved = same_where_coefficients_agree(gname, data, cpu_data)
+        start23()
+        dec = port.UhdrDecoder(device="cuda")
+        dec.set_image(data)
+        dec.set_out_color_transfer(CT.HLG)
+        dec.set_out_img_format(Fmt.RGBA1010102)
+        ours = testing.host_packed(dec.decode().planes[0])
+        read23(f"{gname} encode's decode", {"apply_gainmap": 1})
+        cross = testing.psnr(ours, z["dec_hlg_1010102"])
+        anchor = psnr23[gname, "UhdrDecoder", CT.HLG][0]
+        if not (cross >= testing.ENCODE_GATE_DB
+                and cross >= min(anchor, testing.ANCHOR_CAP_DB)
+                - testing.ENCODE_SLACK_DB):
+            raise AssertionError(f"phase 23 {gname}: card encode {cross:.2f}"
+                                 f" dB against the reference's decode, "
+                                 f"anchor {anchor:.2f} dB")
+        enc23[gname] = (cross, s)
+        log(f"phase 23b {gname} ({cfg['metadata']}, q{cfg['quality']}, scale "
+            f"{cfg['scale']}, map q{cfg['map_quality']}, "
+            f"{'3-channel' if cfg['multi'] else '1-channel'}, gamma "
+            f"{cfg['gamma']}, preset {cfg['preset']}): card encode {s:.3f} s"
+            f", {len(data)} bytes (reference {len(files23[gname])}), its "
+            f"decode {cross:.2f} dB against the reference's (anchor "
+            f"{anchor:.2f} dB), {checked}, scans == plain; {moved} | {card}")
+
+    # (c) the effects golden's queues: the host editor behind UhdrDecoder,
+    # and decode_to_device(effects=...)
+    fx_dbs = []
+    for fx_name, queue in testing.golden_effects():
+        spec = [(kind, *args) for kind, args in queue]
+        resize = "resize" in fx_name
+        start23()
+        for ct in (CT.SRGB, CT.HLG):
+            dec = port.UhdrDecoder(device="cuda")
+            dec.set_image(files23[testing.EFFECTS_GOLDEN])
+            dec.set_out_color_transfer(ct)
+            dec.set_out_img_format(fmt23[ct])
+            testing.queue_effects(dec, queue)
+            got = np.asarray(dec.decode().planes[0])
+            ref = fx_z[f"{fx_name}_{'srgb' if ct == CT.SRGB else 'hlg'}"]
+            if got.shape != ref.shape:
+                raise AssertionError(f"phase 23 effect {fx_name} {ct.name}:"
+                                     f" {got.shape} vs {ref.shape}")
+            if ct == CT.SRGB:
+                db = testing.psnr_8888(got, ref)
+                if not (db >= testing.RESIZE_GATE_DB if resize
+                        else np.array_equal(got, ref)):
+                    raise AssertionError(f"phase 23 effect {fx_name} SRGB: "
+                                         f"{db:.2f} dB, not the reference's")
+            else:
+                db = testing.psnr(got, ref)
+            fx_dbs.append(db)
+        dev_fx = port.JpegR(device="cuda").decode_to_device(
+            files23[testing.EFFECTS_GOLDEN], CT.HLG,
+            effects=effects_of(spec))[0]
+        dev_db = testing.psnr(testing.host_packed(dev_fx),
+                                      fx_z[f"{fx_name}_hlg"])
+        checked = read23(f"effect {fx_name}", {"apply_gainmap": 2})
+        gate = testing.RESIZE_GATE_DB if resize else testing.DECODE_GATE_DB
+        if not (db >= gate and dev_db >= gate):
+            raise AssertionError(f"phase 23 effect {fx_name} HLG: host "
+                                 f"editor {db:.2f} dB, device {dev_db:.2f} "
+                                 f"dB, gate {gate}")
+        log(f"phase 23c effect {fx_name}: SRGB "
+            f"{'%.2f dB' % fx_dbs[-2] if resize else '== the reference'}, "
+            f"HLG host editor {db:.2f} dB, decode_to_device(effects=) "
+            f"{dev_db:.2f} dB against the reference's rasters (gate {gate}),"
+            f" {checked} | {card}")
+    ak.apply_gainmap = real_apply_gainmap
+    del pk.PACK_KERNEL.launch
+    worst = {route: min(db for (n, r, ct), (db, _) in psnr23.items()
+                        if r == route)
+             for route in {r for _, r, _ in psnr23}}
+    log(f"phase 23 reference interop: {len(files23)} reference files on "
+        f"{len(worst)} decode routes, worst PSNR a route "
+        + ", ".join(f"{r} {db:.2f}" for r, db in sorted(worst.items()))
+        + f" dB; {len(enc23)} card encodes "
+        f"{min(c for c, _ in enc23.values()):.2f}-"
+        f"{max(c for c, _ in enc23.values()):.2f} dB; "
+        f"{len(testing.golden_effects())} effect queues; launches "
+        f"{p23_launches}; {time.perf_counter() - t23:.1f} s | {card}")
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -4111,7 +4481,7 @@ def main(argv=None) -> int:
         + sum(c["apply_linear"] for c in slice9) + sharded_linear_launches \
         + wire_dec_launches["apply_linear"] + capi_total["apply_linear"] \
         + fuzz_launches["apply_linear"] + redecode_launches["apply_linear"] \
-        + tools_launches["apply_linear"]
+        + tools_launches["apply_linear"] + p23_launches["apply_linear"]
     hlg_pq = apply_launches["apply_gainmap"] + mb_launches["apply_gainmap"] \
         + sum(c["apply_gainmap"] for c in batch_launches.values()) \
         + general_launches["apply_gainmap"] \
@@ -4120,9 +4490,10 @@ def main(argv=None) -> int:
         + sharded_apply_launches + wire_dec_launches["apply_gainmap"] \
         + capi_total["apply_gainmap"] + fuzz_launches["apply_gainmap"] \
         + redecode_launches["apply_gainmap"] \
-        + tools_launches["apply_gainmap"] - linear
+        + tools_launches["apply_gainmap"] + p23_launches["apply_gainmap"] \
+        - linear
     later = (wire_dec_launches, capi_total, fuzz_launches, redecode_launches,
-             tools_launches)
+             tools_launches, p23_launches)
     log(f"launches of phases 3-17, no wire knob set: pack_scan "
         f"{before_wires['pack_scan']}, apply HLG/PQ "
         f"{hlg_pq - sum(c['apply_gainmap'] - c['apply_linear'] for c in later)}"
@@ -4145,7 +4516,12 @@ def main(argv=None) -> int:
         f"{tools_launches['forward_dct']}; phase 22 (the K-batch route) "
         f"added pack_scan {kb_launches['pack_scan']}, scan kernel "
         f"{kb_launches['forward_dct']}, un-slice "
-        f"{kb_launches['wire_unslice']}, stitch {kb_launches['stitch']}")
+        f"{kb_launches['wire_unslice']}, stitch {kb_launches['stitch']}; "
+        f"phase 23 (reference interop) added pack_scan "
+        f"{p23_launches['pack_scan']}, apply "
+        f"{p23_launches['apply_gainmap']} (LINEAR "
+        f"{p23_launches['apply_linear']}), scan kernel "
+        f"{p23_launches['forward_dct']}")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -4155,7 +4531,7 @@ def main(argv=None) -> int:
                + fx_enc_launches["pack_scan"] + public_launches["pack_scan"]
                + sharded_pack_launches + wire_enc_launches["pack_scan"]
                + capi_total["pack_scan"] + tools_launches["pack_scan"]
-               + kb_launches["pack_scan"],
+               + kb_launches["pack_scan"] + p23_launches["pack_scan"],
                kernel_rows["default"],
                max(r["err"] for r in kernel_rows.values())),
         record("pack_blocks", "block_pack_kernel.cu",
@@ -4200,7 +4576,7 @@ def main(argv=None) -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

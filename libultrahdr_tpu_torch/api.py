@@ -48,6 +48,7 @@ from .jpegr import (DEFAULT_ENC_PRESET, DEFAULT_GAINMAP_GAMMA,
                     DEFAULT_MAP_DIMENSION_SCALE_FACTOR,
                     DEFAULT_USE_MULTI_CHANNEL_GAINMAP, FLT_MAX, JpegR,
                     resolve_device)
+from .jpegr import is_uhdr_image  # noqa: F401
 from .types import (Codec, ColorGamut, ColorRange, ColorTransfer,
                     CompressedImage, EncPreset, GainMapMetadata,
                     HDR_INPUT_FORMATS, ImgFmt, ImgLabel, MIN_HEIGHT,

@@ -29,13 +29,23 @@
 - ``progressive_jpegr`` / ``write_progressive_fixture``: a JPEG_R file
   with its base re-encoded progressive (PIL), and the committed 4K fixture
   ``tests/data/progressive_jpegr_3840x2160.jpg`` made from the benchmark
-  configuration's file.
+  configuration's file;
+- the reference goldens ``tests/goldens/*.npz`` (written once by the
+  reference library, ``tools/make_reference_goldens.py``): ``golden_names``,
+  ``load_golden``, ``golden_input`` (the raw input as a port RawImage),
+  ``golden_encoder`` (a ``UhdrEncoder`` at a golden's configuration),
+  ``golden_metadata`` (its metadata kind), ``golden_effects`` /
+  ``queue_effects`` (the effects golden's queues), ``psnr_8888`` (the
+  SRGB output's PSNR; ``psnr`` gives the HDR outputs', as the reference
+  tests compute them) and the reference tests' gates.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
+import json
 import pathlib
 import struct
 
@@ -57,6 +67,8 @@ from .types import (ColorGamut, ColorRange, ColorTransfer, GainMapMetadata,
 PHOTO_NPZ = PKG_DIR.parent / "tests" / "data" / "photo_yu12_320x240.npz"
 PROGRESSIVE_FIXTURE = PKG_DIR.parent / "tests" / "data" / \
     "progressive_jpegr_3840x2160.jpg"
+GOLDENS_DIR = PKG_DIR.parent / "tests" / "goldens"
+EFFECTS_GOLDEN = "effects_p010_iso_single_s4"
 
 
 def photo_p010(w: int, h: int, seed: int = 11) -> RawImage:
@@ -672,7 +684,9 @@ def _values(packed) -> tuple[np.ndarray, float]:
 
 
 def psnr(got, want) -> float:
-    """PSNR in dB of one packed output against another over R, G, B."""
+    """PSNR in dB of one packed output against another over R, G, B (the
+    reference tests' ``_psnr_1010102`` / ``_psnr_f16``, infinite for equal
+    outputs)."""
     a, peak = _values(got)
     b, _ = _values(want)
     mse = np.mean((a - b) ** 2)
@@ -800,3 +814,117 @@ def write_progressive_fixture(benchmark_file, out=PROGRESSIVE_FIXTURE):
     data = progressive_jpegr(pathlib.Path(benchmark_file).read_bytes())
     pathlib.Path(out).write_bytes(data)
     return data
+
+
+# ---------------------------------------------------------------------------
+# the reference goldens (tests/goldens/*.npz)
+
+# gates of the reference tests (tests/test_reference_goldens.py): a decode
+# of the reference's bytes against the reference's decode; an encode of the
+# golden's input, decoded, against the reference's decode of its own encode
+# (both encoders lossy), and at most ENCODE_SLACK_DB below the anchor (the
+# reference's bytes through the same decoder), capped at ANCHOR_CAP_DB; a
+# resize effect (float bicubic on both sides)
+DECODE_GATE_DB = 60.0
+ENCODE_GATE_DB = 48.0
+ANCHOR_CAP_DB = 60.0
+ENCODE_SLACK_DB = 12.0
+RESIZE_GATE_DB = 50.0
+
+
+def golden_names() -> list[str]:
+    """The goldens with decoded rasters (every file but the effects one),
+    sorted."""
+    names = sorted(p.stem for p in GOLDENS_DIR.glob("*.npz")
+                   if not p.name.startswith("effects_"))
+    if not names:
+        raise FileNotFoundError(f"no goldens under {GOLDENS_DIR}")
+    return names
+
+
+def load_golden(name: str):
+    """(the npz, its configuration dict) of golden `name`."""
+    z = np.load(GOLDENS_DIR / f"{name}.npz")
+    return z, json.loads(bytes(z["config"]).decode())
+
+
+def golden_input(z, cfg: dict) -> RawImage:
+    """A golden's raw input as the reference encoded it: P010, RGBAF16 or
+    RGBA1010102, BT.2100, full range, its transfer from the config."""
+    fmt = {0: ImgFmt.P010, 4: ImgFmt.RGBAF16, 5: ImgFmt.RGBA1010102}[
+        cfg["fmt"]]
+    ct = {0: ColorTransfer.LINEAR, 1: ColorTransfer.HLG,
+          2: ColorTransfer.PQ}[cfg["ct"]]
+    planes = [z[k] for k in sorted(z.files) if k.startswith("in_plane")]
+    if fmt == ImgFmt.RGBA1010102:
+        planes = [p.view(np.uint32) for p in planes]
+    return RawImage(fmt, ColorGamut.BT2100, ct, ColorRange.FULL, cfg["w"],
+                    cfg["h"], planes)
+
+
+def golden_jpegr_knobs(cfg: dict) -> dict:
+    """The ``JpegR`` keywords of a golden's encoder configuration."""
+    from .types import EncPreset
+    return dict(map_dimension_scale_factor=cfg["scale"],
+                map_compress_quality=cfg["map_quality"],
+                use_multi_channel_gainmap=cfg["multi"], gamma=cfg["gamma"],
+                preset=EncPreset(cfg["preset"]),
+                write_iso=cfg["metadata"] == "iso",
+                write_xmp=cfg["metadata"] == "xmp")
+
+
+@contextlib.contextmanager
+def golden_metadata(cfg: dict):
+    """The encoder API's metadata kind set to a golden's for the block:
+    the reference chooses ISO or XMP when it is built (UHDR_WRITE_XMP,
+    UHDR_WRITE_ISO), the port in ``container.jpegr_container``'s two
+    switches, which a ``JpegR`` reads when it is made."""
+    from .container import jpegr_container as jc
+    saved = jc.WRITE_ISO_METADATA, jc.WRITE_XMP_METADATA
+    jc.WRITE_ISO_METADATA = cfg["metadata"] == "iso"
+    jc.WRITE_XMP_METADATA = cfg["metadata"] == "xmp"
+    try:
+        yield
+    finally:
+        jc.WRITE_ISO_METADATA, jc.WRITE_XMP_METADATA = saved
+
+
+def golden_encoder(z, cfg: dict, device):
+    """A ``UhdrEncoder`` on `device` holding a golden's input as the HDR
+    intent, at the golden's quality, map scale, map quality, channels,
+    gamma and preset; encode it inside ``golden_metadata(cfg)``."""
+    from .api import UhdrEncoder
+    from .types import EncPreset, ImgLabel
+    enc = UhdrEncoder(device=device)
+    enc.set_raw_image(golden_input(z, cfg), ImgLabel.HDR)
+    enc.set_quality(cfg["quality"], ImgLabel.BASE)
+    enc.set_quality(cfg["map_quality"], ImgLabel.GAIN_MAP)
+    enc.set_gainmap_scale_factor(cfg["scale"])
+    enc.set_using_multi_channel_gainmap(cfg["multi"])
+    enc.set_gainmap_gamma(cfg["gamma"])
+    enc.set_preset(EncPreset(cfg["preset"]))
+    return enc
+
+
+def golden_effects() -> list[tuple[str, list[tuple[str, tuple]]]]:
+    """The effects golden's queues as the reference applied them: (name,
+    [(kind, arguments), ...]) in the file's order."""
+    _, cfg = load_golden(EFFECTS_GOLDEN)
+    return [(name, [(kind, tuple(args)) for kind, args in queue])
+            for name, queue in cfg["effects"]]
+
+
+def queue_effects(ctx, queue):
+    """Add a ``golden_effects`` queue to an encoder or decoder context."""
+    for kind, args in queue:
+        getattr(ctx, f"add_effect_{kind}")(*args)
+
+
+def psnr_8888(got, want) -> float:
+    """PSNR in dB of one RGBA8888 output against another over R, G, B (peak
+    255; infinite for equal outputs)."""
+    a, b = (np.stack([(np.asarray(x, np.uint32) >> s) & 0xFF
+                      for s in (0, 8, 16)]).astype(np.float64)
+            for x in (got, want))
+    mse = np.mean((a - b) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))

@@ -16,14 +16,18 @@
   ``error_tuple`` codes and the flat metadata equal to JAX's.
 - ``utils.stage``: a no-op when disabled; enabled, a port encode (single
   and pipelined) records both ``encode.fetch_*`` stages.
-- The port's top-level names are a superset of the JAX ``__init__``'s; the
-  JAX modules with no port counterpart are exactly the ones ROADMAP.md
-  still owes; every new entry point defaults to the card and raises
-  without a GPU.
+- The port's top-level names are a superset of the JAX ``__init__``'s,
+  and each subpackage re-exports what the JAX package's of the same name
+  does (``from libultrahdr_tpu_torch.jpeg import JpegEncoder``; the API
+  module's ``is_uhdr_image``); every JAX module, binding source and tool
+  has a port counterpart, and every JAX test file the port's test files
+  that hold its cases (``TEST_FILES``) or a named exclusion; every new
+  entry point defaults to the card and raises without a GPU.
 """
 
 import collections
 import dataclasses
+import importlib
 import pathlib
 import types as pytypes
 
@@ -49,6 +53,8 @@ guard_jax_native()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 W, H = 64, 48
+# the JAX package's subpackages, each with an __init__ that re-exports
+SUBPACKAGES = ("jpeg", "ops", "container", "parallel", "utils")
 Fmt, CG, CT = port.ImgFmt, port.ColorGamut, port.ColorTransfer
 
 # the legacy surface's Android defaults (jpegr.h:28-43)
@@ -524,10 +530,30 @@ def test_stage_timers(monkeypatch):
 # the package surface
 
 def test_public_names_superset_of_jax():
+    """The port's top-level names are a superset of the JAX package's, and
+    what each subpackage of the JAX package re-exports (``from
+    libultrahdr_tpu.jpeg import JpegEncoder``) the port's subpackage of the
+    same name re-exports too, bound to the port's own objects.  Modules,
+    and the names ``test_torch_surface.EXCLUDED`` gives a reason for under
+    any module of the subpackage, are not compared."""
+    from test_torch_surface import EXCLUDED
     names = {n for n, v in vars(jax_pkg).items()
              if not n.startswith("_") and not isinstance(v, pytypes.ModuleType)}
     missing = names - set(dir(port))
     assert not missing, missing
+    for sub in SUBPACKAGES:
+        jmod = importlib.import_module(f"libultrahdr_tpu.{sub}")
+        pmod = importlib.import_module(f"libultrahdr_tpu_torch.{sub}")
+        excluded = {n for rel, ex in EXCLUDED.items()
+                    if rel.startswith(f"{sub}/") for n in ex}
+        names = {n for n, v in vars(jmod).items()
+                 if not n.startswith("_")
+                 and not isinstance(v, pytypes.ModuleType)} - excluded
+        missing = names - set(dir(pmod))
+        assert not missing, (sub, sorted(missing))
+        for n in names:
+            mod = getattr(getattr(pmod, n), "__module__", "")
+            assert mod.startswith("libultrahdr_tpu_torch"), (sub, n, mod)
     for n in ("MirrorDirection", "alloc_raw_image",
               "validate_gainmap_metadata"):
         assert getattr(port, n).__module__.startswith("libultrahdr_tpu_torch")
@@ -536,6 +562,16 @@ def test_public_names_superset_of_jax():
     jimg = jax_types.alloc_raw_image(int(Fmt.P010), int(CG.BT2100),
                                      int(CT.HLG), 1, 16, 8)
     assert [p.shape for p in img.planes] == [p.shape for p in jimg.planes]
+
+
+def test_api_reexports_is_uhdr_image():
+    """``libultrahdr_tpu.api`` re-exports ``is_uhdr_image`` on purpose; so
+    does the port's, and it is the port's probe."""
+    assert "is_uhdr_image" in vars(jax_pkg.api)
+    from libultrahdr_tpu_torch.api import is_uhdr_image
+    assert is_uhdr_image is port.jpegr.is_uhdr_image
+    data = port.JpegR(device="cpu").encode_api0(testing.photo_p010(W, H))
+    assert is_uhdr_image(data) and not is_uhdr_image(data[:2] + b"\xff\xd9")
 
 
 # JAX modules the port holds under another name
@@ -585,6 +621,80 @@ def test_module_coverage():
                  if not (port_root / port_rel).is_file()]
     assert unported == []
     assert all((port_root / p).is_file() for p in PORTED_AS.values())
+
+
+# every test file of the JAX package (each pre-port tests/test_*.py) -> the
+# port's test files that hold its cases
+TEST_FILES = {
+    "test_agtm.py": ["test_torch_agtm.py"],
+    "test_api.py": ["test_torch_encode_general.py", "test_torch_decode.py",
+                    "test_torch_effects.py"],
+    "test_capi.py": ["test_torch_capi.py"],
+    "test_colors.py": ["test_torch_golden_anchors.py", "test_torch_surface.py",
+                       "test_torch_tables.py"],
+    "test_container.py": ["test_torch_tables.py", "test_torch_container.py"],
+    "test_decode_device_and_xmp.py": ["test_torch_decode_device_xmp.py",
+                                      "test_torch_decode.py"],
+    "test_decode_fused.py": ["test_torch_decode.py",
+                             "test_torch_decode_batch.py"],
+    "test_effects_device.py": ["test_torch_effects.py"],
+    "test_fused.py": ["test_torch_encode.py", "test_torch_encode_general.py",
+                      "test_torch_decode_batch.py"],
+    "test_fused_variants.py": ["test_torch_fused_variants.py"],
+    "test_fuzz.py": ["test_torch_fuzz.py"],
+    "test_fuzz_differential.py": ["test_torch_fuzz_differential.py"],
+    "test_fuzz_guided.py": ["test_torch_fuzz.py"],
+    "test_golden_anchors.py": ["test_torch_golden_anchors.py"],
+    "test_host_decode.py": ["test_torch_decode_host.py",
+                            "test_torch_surface.py"],
+    "test_java_binding.py": ["test_torch_java_binding.py"],
+    "test_jpeg.py": ["test_torch_encode_general.py", "test_torch_decode.py",
+                     "test_torch_surface.py"],
+    "test_jpegr_compat.py": ["test_torch_api_surface.py"],
+    "test_jpegr_e2e.py": ["test_torch_jpegr_e2e.py"],
+    "test_ops.py": ["test_torch_ops.py", "test_torch_apply.py",
+                    "test_torch_decode_general.py"],
+    "test_pack_kernel.py": ["test_torch_pack.py", "test_torch_pack_slots.py"],
+    "test_pallas_apply.py": ["test_torch_apply.py"],
+    "test_parallel.py": ["test_torch_parallel.py"],
+    "test_progressive.py": ["test_torch_decode_general.py"],
+    "test_reference_fixtures.py": ["test_torch_reference_fixtures.py"],
+    "test_reference_goldens.py": ["test_torch_reference_goldens.py"],
+    "test_round3_fixes.py": ["test_torch_round3.py"],
+    "test_sanitizers.py": ["test_torch_sanitizers.py"],
+    "test_smoke_e2e.py": ["test_torch_smoke_e2e.py"],
+    "test_wire_codec.py": ["test_torch_wire.py", "test_torch_wire_routes.py",
+                           "test_torch_wire_kernel.py"],
+}
+# the JAX package's test files with no port counterpart, and why
+TEST_FILES_EXCLUDED = {
+    "test_reference_binary.py": "needs a build of the reference library "
+                                "(the reference's own binary), which no "
+                                "test machine has; the reference's files "
+                                "are held by test_torch_reference_goldens.py",
+    "test_device_entropy.py": "the XLA pack route, which test_torch_surface."
+                              "EXCLUDED names; its kernel's counterpart is "
+                              "held by test_torch_pack.py",
+}
+
+
+def test_test_file_coverage():
+    """Every test file of the JAX package maps to the port's test files
+    that hold its cases, or to a named exclusion with its reason; each
+    port file named exists."""
+    tests = REPO / "tests"
+    jax_files = {f.name for f in tests.glob("test_*.py")
+                 if not f.name.startswith("test_torch_")}
+    assert sorted(jax_files - set(TEST_FILES) - set(TEST_FILES_EXCLUDED)) \
+        == []
+    assert sorted(set(TEST_FILES) | set(TEST_FILES_EXCLUDED)) == \
+        sorted(jax_files)
+    assert not set(TEST_FILES) & set(TEST_FILES_EXCLUDED)
+    named = [f for fs in TEST_FILES.values() for f in fs] + [
+        "test_torch_pack.py", "test_torch_reference_goldens.py"]
+    assert all(f.startswith("test_torch_") and (tests / f).is_file()
+               for f in named), named
+    assert all(reason for reason in TEST_FILES_EXCLUDED.values())
 
 
 def test_no_entry_point_defaults_to_the_cpu():

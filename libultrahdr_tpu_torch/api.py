@@ -54,6 +54,7 @@ from .types import (Codec, ColorGamut, ColorRange, ColorTransfer,
                     HDR_INPUT_FORMATS, ImgFmt, ImgLabel, MIN_HEIGHT,
                     MIN_WIDTH, MirrorDirection, RawImage,
                     UHDR_MAX_DIMENSION)
+from .utils import stage
 
 
 # ---------------------------------------------------------------------------
@@ -508,14 +509,15 @@ class UhdrDecoder(_Context):
 
     def _probe_impl(self):
         jr = JpegR(device=self.device)
-        primary, gm = jr.extract_primary_and_gainmap(self._data)
-        if gm is None:
-            raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
-                            "did not find gain map image")
-        pinfo = parse_jpeg(primary, parse_only=True)
-        gm_info = parse_jpeg(gm, parse_only=True)
-        metadata = jr.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
-                                             pinfo.exif)
+        with stage("decode.parse", bytes=len(self._data)):
+            primary, gm = jr.extract_primary_and_gainmap(self._data)
+            if gm is None:
+                raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                                "did not find gain map image")
+            pinfo = parse_jpeg(primary, parse_only=True)
+            gm_info = parse_jpeg(gm, parse_only=True)
+            metadata = jr.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
+                                                 pinfo.exif)
         self._info = {
             "width": pinfo.width, "height": pinfo.height,
             "gainmap_width": gm_info.width, "gainmap_height": gm_info.height,
@@ -568,39 +570,43 @@ class UhdrDecoder(_Context):
         first (a slow TPU link made it the faster one), ``auto`` stays on
         the device.  ``enable_gpu_acceleration(False)`` takes the
         general path whatever the engine.  The effect queue then edits the
-        output and the gain map on the host (``_apply_decoder_effects``)."""
+        output and the gain map on the host (``_apply_decoder_effects``).
+        A ``decode`` span holds the request, the root of its spans
+        (``utils.profiling``)."""
         if self._sailed:
             return self._decoded
-        self.probe()
-        self._sailed = True
-        fmt, ct = self._output_fmt, self._output_ct
-        if ((fmt == ImgFmt.RGBA1010102 and ct not in (ColorTransfer.HLG,
-                                                      ColorTransfer.PQ))
-                or (fmt == ImgFmt.RGBAF16 and ct != ColorTransfer.LINEAR)
-                or (fmt == ImgFmt.RGBA8888 and ct != ColorTransfer.SRGB)):
-            raise invalid_param(
-                f"unsupported output pixel format {fmt} and output color "
-                f"transfer {ct} pair")
-        jr = JpegR(device=self.device)
-        engine = os.environ.get("UHDR_TPU_DECODE_ENGINE", "auto").lower()
-        if self._gpu and engine == "host" and ct != ColorTransfer.SRGB:
-            dest, _, gm_img = jr.decode_host(
-                self._data, output_ct=ct,
-                max_display_boost=self._max_display_boost,
-                return_gainmap=True)
-        else:
-            dest, _, gm_img = jr.decode(
-                self._data, output_ct=ct, output_fmt=fmt,
-                max_display_boost=self._max_display_boost,
-                return_gainmap=True,
-                use_fused=self._gpu and engine != "general",
-                engine="host" if self._gpu and engine == "host"
-                else "device")
-        self._decoded = dest
-        self._gainmap_img = gm_img
-        if self._effects:
-            self._apply_decoder_effects()
-        return self._decoded
+        with stage("decode", transfer=self._output_ct.name) as attrs:
+            self.probe()
+            attrs.update(w=self._info["width"], h=self._info["height"])
+            self._sailed = True
+            fmt, ct = self._output_fmt, self._output_ct
+            if ((fmt == ImgFmt.RGBA1010102 and ct not in (ColorTransfer.HLG,
+                                                          ColorTransfer.PQ))
+                    or (fmt == ImgFmt.RGBAF16 and ct != ColorTransfer.LINEAR)
+                    or (fmt == ImgFmt.RGBA8888 and ct != ColorTransfer.SRGB)):
+                raise invalid_param(
+                    f"unsupported output pixel format {fmt} and output color "
+                    f"transfer {ct} pair")
+            jr = JpegR(device=self.device)
+            engine = os.environ.get("UHDR_TPU_DECODE_ENGINE", "auto").lower()
+            if self._gpu and engine == "host" and ct != ColorTransfer.SRGB:
+                dest, _, gm_img = jr.decode_host(
+                    self._data, output_ct=ct,
+                    max_display_boost=self._max_display_boost,
+                    return_gainmap=True)
+            else:
+                dest, _, gm_img = jr.decode(
+                    self._data, output_ct=ct, output_fmt=fmt,
+                    max_display_boost=self._max_display_boost,
+                    return_gainmap=True,
+                    use_fused=self._gpu and engine != "general",
+                    engine="host" if self._gpu and engine == "host"
+                    else "device")
+            self._decoded = dest
+            self._gainmap_img = gm_img
+            if self._effects:
+                self._apply_decoder_effects()
+            return self._decoded
 
     def _apply_decoder_effects(self):
         """apply_effects after the decode (ultrahdr_api.cpp:275-415): every

@@ -502,11 +502,9 @@ def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
     """The back half of a fused encode: one `pack` of both scans on the
     device, one download, the host join of each scan and the container."""
     words, blen = _pack_scans(scans, pack)
-    with stage("encode.fetch_offsets"):
-        blen_h = blen.cpu().numpy()
-    with stage("encode.fetch_scans"):
-        base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
-                                         blen_h, [lay for _, lay in scans])
+    blen_h = blen.cpu().numpy()
+    base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
+                                     blen_h, [lay for _, lay in scans])
     return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                                icc_cg, scale, gm_scan, metadata, exif, gm_ct,
                                gm_cg)
@@ -824,26 +822,24 @@ def _join_p010(job: _EncodeJob) -> list[list[bytes]]:
     waits, the copy and the C++ joiner release it).  Returns each image's
     [base scan, gain-map scan]."""
     k = len(job.imgs)
-    with stage("encode.fetch_offsets"):
-        if job.event is not None:
-            job.event.synchronize()
-        blen_h = job.blen.numpy()
-    with stage("encode.fetch_scans"):
-        if job.slot is None:
-            words_h = job.words.numpy().view(np.uint32)
-        else:
-            words_h = job.slot.download(
-                job.words, int(job.slot.total_h[0]) if k == 1
-                else device_entropy.total_words(blen_h))
-        if k == 1:
-            return [_join_scans(words_h, blen_h, job.layouts)]
-        bl, gl = job.layouts
-        n_base = bl.mcus_h * bl.bpr
-        rows = blen_h.astype(np.uint16).reshape(k, -1)
-        scans = fetch_blocks_multi(words_h, [
-            part for r in rows
-            for part in ((r[:n_base], bl.bpr), (r[n_base:], gl.bpr))])
-        return [scans[2 * i:2 * i + 2] for i in range(k)]
+    if job.event is not None:
+        job.event.synchronize()
+    blen_h = job.blen.numpy()
+    if job.slot is None:
+        words_h = job.words.numpy().view(np.uint32)
+    else:
+        words_h = job.slot.download(
+            job.words, int(job.slot.total_h[0]) if k == 1
+            else device_entropy.total_words(blen_h))
+    if k == 1:
+        return [_join_scans(words_h, blen_h, job.layouts)]
+    bl, gl = job.layouts
+    n_base = bl.mcus_h * bl.bpr
+    rows = blen_h.astype(np.uint16).reshape(k, -1)
+    scans = fetch_blocks_multi(words_h, [
+        part for r in rows
+        for part in ((r[:n_base], bl.bpr), (r[n_base:], gl.bpr))])
+    return [scans[2 * i:2 * i + 2] for i in range(k)]
 
 
 def _container_p010(jr, job: _EncodeJob, img, scans, quality: int,
@@ -1065,10 +1061,12 @@ DECODE_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
 
 def upload_coeff_planes(coeffs, device: torch.device):
     """Raw upload of (bh, bw, 64) int16 coefficient planes (host arrays or
-    pinned tensors), one transfer each."""
-    return [pixel.to_device(c if isinstance(c, torch.Tensor)
-                            else np.asarray(c, np.int16), device)
-            for c in coeffs]
+    pinned tensors), one transfer each; the ``decode.upload`` span holds
+    the pinned staging copy and the queued copies."""
+    with stage("decode.upload", bytes=sum(c.nbytes for c in coeffs)):
+        return [pixel.to_device(c if isinstance(c, torch.Tensor)
+                                else np.asarray(c, np.int16), device)
+                for c in coeffs]
 
 
 def _decode_sdr_and_gain(base_coeffs, base_qts, gm_coeffs, gm_qts, *, h: int,
@@ -1097,11 +1095,15 @@ def _decode_device_core(base_coeffs, base_qts, gm_coeffs, gm_qts,
     """Device half of decode on the coefficients' device: dequant + IDCT of
     base and gain map + apply-gainmap + output packing (the
     jpegr.cpp:1384-1699 pipeline with the entropy decode left on host).
-    Returns (packed output, gain map u8 (C, mh, mw))."""
-    sdr_yuv, gm_u8 = _decode_sdr_and_gain(
-        base_coeffs, base_qts, gm_coeffs, gm_qts, h=h, w=w,
-        sampling_key=sampling_key, gm_channels=gm_channels, scale_k=scale_k)
-    packed = apply_ops.apply_gainmap_core(
-        sdr_yuv, gm_u8, meta_arrays, scale_k=scale_k, weight=weight,
-        out_ct=out_ct, sdr_cg=sdr_cg, hdr_cg=hdr_cg, use_base_cg=use_base_cg)
-    return packed, gm_u8
+    Returns (packed output, gain map u8 (C, mh, mw)); the
+    ``decode.dispatch`` span holds the host's time queuing the launches."""
+    with stage("decode.dispatch"):
+        sdr_yuv, gm_u8 = _decode_sdr_and_gain(
+            base_coeffs, base_qts, gm_coeffs, gm_qts, h=h, w=w,
+            sampling_key=sampling_key, gm_channels=gm_channels,
+            scale_k=scale_k)
+        packed = apply_ops.apply_gainmap_core(
+            sdr_yuv, gm_u8, meta_arrays, scale_k=scale_k, weight=weight,
+            out_ct=out_ct, sdr_cg=sdr_cg, hdr_cg=hdr_cg,
+            use_base_cg=use_base_cg)
+        return packed, gm_u8

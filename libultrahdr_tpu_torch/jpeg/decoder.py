@@ -33,6 +33,7 @@ import torch
 from ..errors import UhdrError, UhdrErrorCode, unsupported
 from ..ops.pixel import to_device
 from ..types import ImgFmt
+from ..utils import stage
 from . import native
 from .dct import inverse_plane
 from .tables import ZIGZAG_ORDER, HuffTable
@@ -322,10 +323,13 @@ def _decode_progressive_coeffs(data: bytes, info: JpegInfo, comps,
     return coeff_arrays
 
 
-def decode_coefficients(data: bytes, info: JpegInfo):
+def decode_coefficients(data: bytes, info: JpegInfo, *,
+                        image: str | None = None):
     """Host Huffman decode of a baseline or progressive JPEG to MCU-padded
     coefficient arrays + natural-order quant tables per component (the
-    front half of ``decode_to_planes``, without the IDCT)."""
+    front half of ``decode_to_planes``, without the IDCT).  A
+    ``decode.huffman`` span holds it, with its MCUs and `image` (``base``
+    or ``map`` of a JPEG_R)."""
     _validate(info)
     fmt = get_output_sampling_format(info)
     hmax = max(c.h for c in info.components)
@@ -334,15 +338,16 @@ def decode_coefficients(data: bytes, info: JpegInfo):
     mcus_h = -(-info.height // (8 * vmax))
     comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
              for c in info.components]
-    if info.progressive:
-        coeffs = _decode_progressive_coeffs(data, info, comps, mcus_w,
-                                            mcus_h, hmax, vmax)
-    else:
-        dc = [info.dc_tables.get(i) for i in range(4)]
-        ac = [info.ac_tables.get(i) for i in range(4)]
-        coeffs, _ = native.decode_scan(data[info.scan_offset:], comps,
-                                       mcus_w, mcus_h, dc, ac,
-                                       info.restart_interval)
+    with stage("decode.huffman", image=image, mcus=mcus_w * mcus_h):
+        if info.progressive:
+            coeffs = _decode_progressive_coeffs(data, info, comps, mcus_w,
+                                                mcus_h, hmax, vmax)
+        else:
+            dc = [info.dc_tables.get(i) for i in range(4)]
+            ac = [info.ac_tables.get(i) for i in range(4)]
+            coeffs, _ = native.decode_scan(data[info.scan_offset:], comps,
+                                           mcus_w, mcus_h, dc, ac,
+                                           info.restart_interval)
     qts = [np.asarray(require_qtable(info, c), np.int32)
            for c in info.components]
     return coeffs, qts, fmt

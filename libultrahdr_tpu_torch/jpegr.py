@@ -81,6 +81,7 @@ from .ops import tonemap as tonemap_ops
 from .types import (ColorGamut, ColorRange, ColorTransfer, CompressedImage,
                     EncPreset, GainMapMetadata, HDR_INPUT_FORMATS, ImgFmt,
                     RGB_FORMATS, RawImage)
+from .utils import stage
 
 # Library defaults (jpegr.h:27-47)
 DEFAULT_MAP_DIMENSION_SCALE_FACTOR = 1
@@ -569,22 +570,24 @@ class JpegR:
         """Split and parse a JPEG_R file: (primary, pinfo, gm_jpeg, gm_info,
         metadata, sdr_cg, gm_cg).  Without `need_gainmap` (an SRGB output
         that does not return the map) the gain map is neither demanded nor
-        parsed, and gm_info, metadata and gm_cg are None."""
-        primary, gm_jpeg = self.extract_primary_and_gainmap(data)
-        pinfo = parse_jpeg(primary)
-        sdr_cg = icc_mod.read_icc_color_gamut(pinfo.icc) if pinfo.icc \
-            else ColorGamut.UNSPECIFIED
-        if not need_gainmap:
-            return primary, pinfo, gm_jpeg, None, None, sdr_cg, None
-        if gm_jpeg is None:
-            raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
-                            "no gain map image present")
-        gm_info = parse_jpeg(gm_jpeg)
-        metadata = self.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
-                                               pinfo.exif)
-        gm_cg = icc_mod.read_icc_color_gamut(gm_info.icc) if gm_info.icc \
-            else ColorGamut.UNSPECIFIED
-        return primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg
+        parsed, and gm_info, metadata and gm_cg are None.  A
+        ``decode.parse`` span holds it."""
+        with stage("decode.parse", bytes=len(data)):
+            primary, gm_jpeg = self.extract_primary_and_gainmap(data)
+            pinfo = parse_jpeg(primary)
+            sdr_cg = icc_mod.read_icc_color_gamut(pinfo.icc) if pinfo.icc \
+                else ColorGamut.UNSPECIFIED
+            if not need_gainmap:
+                return primary, pinfo, gm_jpeg, None, None, sdr_cg, None
+            if gm_jpeg is None:
+                raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                                "no gain map image present")
+            gm_info = parse_jpeg(gm_jpeg)
+            metadata = self.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
+                                                   pinfo.exif)
+            gm_cg = icc_mod.read_icc_color_gamut(gm_info.icc) \
+                if gm_info.icc else ColorGamut.UNSPECIFIED
+            return primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg
 
     def decode(self, data: bytes, output_ct=ColorTransfer.HLG,
                output_fmt=ImgFmt.RGBA1010102,
@@ -680,9 +683,9 @@ class JpegR:
         downloaded raw or, with UHDR_TPU_WIRE_DOWN set, through the download
         wire."""
         packed_dev, gm_dev = self._decode_planned(
-            plan, fused.decode_coefficients(primary, pinfo),
-            fused.decode_coefficients(gm_jpeg, gm_info), metadata,
-            output_ct, max_display_boost)
+            plan, fused.decode_coefficients(primary, pinfo, image="base"),
+            fused.decode_coefficients(gm_jpeg, gm_info, image="map"),
+            metadata, output_ct, max_display_boost)
         if wire.down_wire_enabled():
             fetch = fused.fetch_packed_f16 \
                 if ColorTransfer(output_ct) == ColorTransfer.LINEAR \
@@ -774,9 +777,9 @@ class JpegR:
             raise unsupported(
                 "stream shape not supported by the fused decode path")
         packed, gm_u8 = self._decode_planned(
-            plan, fused.decode_coefficients(primary, pinfo),
-            fused.decode_coefficients(gm_jpeg, gm_info), metadata,
-            output_ct, max_display_boost)
+            plan, fused.decode_coefficients(primary, pinfo, image="base"),
+            fused.decode_coefficients(gm_jpeg, gm_info, image="map"),
+            metadata, output_ct, max_display_boost)
         return packed, gm_u8, plan["hdr_cg"]
 
     # ------------------------------------------------------------------
@@ -893,8 +896,10 @@ class JpegR:
         h_cg = s_cg if ColorGamut(gm_cg) == ColorGamut.UNSPECIFIED \
             else ColorGamut(gm_cg)
 
-        base_coeffs, base_qts, _ = decode_coefficients(primary, pinfo)
-        gm_coeffs, gm_qts, _ = decode_coefficients(gm_jpeg, gm_info)
+        base_coeffs, base_qts, _ = decode_coefficients(primary, pinfo,
+                                                       image="base")
+        gm_coeffs, gm_qts, _ = decode_coefficients(gm_jpeg, gm_info,
+                                                   image="map")
         y, u, v = (native.idct_plane(c, q)
                    for c, q in zip(base_coeffs, base_qts))
         gm_planes = [native.idct_plane(c, q)[:mh, :mw]
@@ -1113,12 +1118,24 @@ class JpegR:
         return outs
 
 
+def _download(t: torch.Tensor, what: str) -> np.ndarray:
+    """A tensor in host memory: on a card, the wait for the current
+    stream's queued work (``decode.wait``, which the copy would wait for
+    anyway), then the copy (``decode.download``, with the bytes it brings
+    to host memory, counted on the CPU too)."""
+    if t.device.type == "cuda":
+        with stage("decode.wait", what=what):
+            torch.cuda.current_stream(t.device).synchronize()
+    with stage("decode.download", what=what, bytes=t.nbytes):
+        return t.cpu().numpy()
+
+
 def _output_image(packed, hdr_cg, output_ct, w: int, h: int) -> RawImage:
     """A packed HDR output (tensor on any device, or host array) as a host
     RawImage: RGBAF16 (H, W, 4) u16 patterns for LINEAR, else RGBA1010102
     (H, W) u32."""
     if isinstance(packed, torch.Tensor):
-        packed = packed.cpu().numpy()
+        packed = _download(packed, "output")
     if ColorTransfer(output_ct) == ColorTransfer.LINEAR:
         return RawImage(ImgFmt.RGBAF16, hdr_cg, output_ct, ColorRange.FULL,
                         w, h, [packed.view(np.uint16)])
@@ -1132,7 +1149,7 @@ def _gainmap_image(gm_u8: torch.Tensor, gm_cg) -> RawImage:
     interleaved to (mh, mw, 3) on the device: the host transpose of a
     full-resolution map cost tens of ms."""
     c, mh, mw = gm_u8.shape
-    plane = gm_u8.permute(1, 2, 0).contiguous().cpu().numpy()
+    plane = _download(gm_u8.permute(1, 2, 0).contiguous(), "map")
     return RawImage(ImgFmt.YUV400 if c == 1 else ImgFmt.RGB888,
                     ColorGamut(gm_cg), ColorTransfer.UNSPECIFIED,
                     ColorRange.FULL, mw, mh,
@@ -1149,9 +1166,9 @@ def _host_decode(e: dict, stage: bool):
     not block)."""
     out = []
     packing = wire.coeff_wire_enabled()
-    for jpeg, info in ((e["primary"], e["pinfo"]), (e["gm_jpeg"],
-                                                   e["gm_info"])):
-        coeffs, qts, _ = fused.decode_coefficients(jpeg, info)
+    for image, jpeg, info in (("base", e["primary"], e["pinfo"]),
+                              ("map", e["gm_jpeg"], e["gm_info"])):
+        coeffs, qts, _ = fused.decode_coefficients(jpeg, info, image=image)
         if stage and not packing:
             coeffs = [pixel.pinned(c) for c in coeffs]
         out.append((coeffs, qts))

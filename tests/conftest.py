@@ -42,6 +42,8 @@ def pytest_configure(config):
         "markers",
         "smoke: <2-minute tier (pytest -m smoke): fast pure-logic "
         "modules + one tiny e2e; run it every session.")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips where there is none")
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,6 @@
   entry point defaults to the card and raises without a GPU.
 """
 
-import collections
 import dataclasses
 import importlib
 import pathlib
@@ -503,27 +502,30 @@ def test_bridge_refusals_and_error_tuples_match_jax():
 # ---------------------------------------------------------------------------
 # utils.stage
 
-def test_stage_timers(monkeypatch):
-    assert not profiling._ENABLED
-    before = profiling.stage_report()
-    with profiling.stage("encode.fetch_scans"):
+def test_stage_timers():
+    """stage() records only under torch.profiler, and stage_report() sums
+    what it recorded; the encodes, fused and pipelined, record no span
+    (spans cover the decode chain: tests/test_torch_trace.py)."""
+    profiling.clear()
+    with profiling.stage("decode.parse"):
         pass
-    assert profiling.stage_report() == before
-    monkeypatch.setattr(profiling, "_ENABLED", True)
-    monkeypatch.setattr(profiling, "_ACC",
-                        collections.defaultdict(lambda: [0, 0.0]))
-    enc = port.UhdrEncoder(device="cpu")
-    enc.set_raw_image(testing.photo_p010(W, H), port.ImgLabel.HDR)
-    enc.encode()
+    assert profiling.stage_report() == {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        enc = port.UhdrEncoder(device="cpu")
+        enc.set_raw_image(testing.photo_p010(W, H), port.ImgLabel.HDR)
+        enc.encode()
+        fused.encode_api0_p010_pipelined(
+            port.JpegR(device="cpu"), [testing.photo_p010(W, H, seed=s)
+                                       for s in (1, 2)])
+        assert profiling.stage_report() == {}
+        for _ in range(3):
+            with profiling.stage("decode.parse"):
+                pass
     rep = profiling.stage_report()
-    assert {k: v[0] for k, v in rep.items()} == {
-        "encode.fetch_offsets": 1, "encode.fetch_scans": 1}
-    assert all(v[1] >= 0.0 for v in rep.values())
-    fused.encode_api0_p010_pipelined(
-        port.JpegR(device="cpu"), [testing.photo_p010(W, H, seed=s)
-                                   for s in (1, 2)])
-    assert {k: v[0] for k, v in profiling.stage_report().items()} == {
-        "encode.fetch_offsets": 3, "encode.fetch_scans": 3}
+    assert list(rep) == ["decode.parse"] and rep["decode.parse"][0] == 3
+    assert rep["decode.parse"][1] >= 0.0
+    profiling.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,24 @@
+"""Upload (``fused.upload_coeff_planes``): milliseconds of the host in the
+port's ``decode.upload`` spans per megapixel decoded: the pinned staging
+copy of the coefficient planes and the queuing of their copies to the
+card (the copies themselves are in ``copy.ms_per_mp``)."""
+
+NAME = "decode.upload"
+
+
+def spans(tr, name):
+    """The port's spans called `name` (``utils.profiling.spans()``) that
+    overlap the traced window; None from a port that records none."""
+    from libultrahdr_tpu_torch.utils import profiling
+    if not hasattr(profiling, "spans"):
+        return None
+    w0, w1 = tr.window
+    return [s for s in profiling.spans() if s.name == name
+            and s.start_ns * 1e-9 < w1 and s.end_ns * 1e-9 > w0]
+
+
+def read(tr):
+    got = spans(tr, NAME)
+    if not got or not tr.megapixels:
+        return None
+    return 1e-6 * sum(s.end_ns - s.start_ns for s in got) / tr.megapixels

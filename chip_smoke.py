@@ -25,12 +25,13 @@ the general path's encoder), and every scan and plane it built is then
 held against the plain composition on its own inputs:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the five CUDA kernel libraries (csrc/pack_kernel.cu,
+2. build the seven CUDA kernel libraries (csrc/pack_kernel.cu,
    csrc/block_pack_kernel.cu, csrc/apply_kernel.cu, the scan kernel
-   csrc/dct_kernel.cu and the wire kernels csrc/wire_kernel.cu, nvcc,
-   sm_90a) and the host C++ (csrc/host/) from the checkout's sources, all
-   six compilers started together; print each kernel's ptxas line
-   (registers, static shared memory, spills);
+   csrc/dct_kernel.cu, the wire kernels csrc/wire_kernel.cu, the stitch
+   csrc/stitch_kernel.cu and the entropy decode csrc/huffman_kernel.cu,
+   nvcc, sm_90a) and the host C++ (csrc/host/) from the checkout's
+   sources, the compilers started together; print each kernel's ptxas
+   line (registers, static shared memory, spills);
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
    planes with the pack's edge cases (block counts that are and are not a
@@ -290,6 +291,23 @@ held against the plain composition on its own inputs:
    block lengths), every scan it builds against the plain composition.
    Prints a line a file and route (PSNR, route, launches, seconds), one an
    encode, one an effect queue;
+24. the entropy decode of scans without restart markers on the card
+   (``jpeg/huffman_kernel``): (a) the kernel against its plain version (run
+   on the card's tensors) and ``native.decode_scan`` on
+   ``testing.huffman_edge_cases`` and the goldens' bases and maps at
+   64-bit subsequences, and the same status word as the plain version on
+   ``huffman_fault_cases``; (b) the base and the map of a 12 MP file of each
+   benchmark configuration (the plain writer's, no DRI): kernel == plain ==
+   host, the kernel's ms (CUDA events), the plain version's and the host's
+   beside its bound, and each of its kernels' device ms in one decode
+   (torch.profiler, in a child process: ``--huffman-split``); (c)
+   ``UhdrDecoder.decode`` of those files to HLG and PQ: two launches a
+   request, read from counts zeroed before it (the kernel's record counts
+   these and phase 23's), no re-decode, output and map == the host
+   route's; (d) a card fuzz of seeded bit flips in the goldens' scans
+   through the fused route: every output and map == the host route's, the
+   re-decodes counted.  ``--only-huffman`` runs phase 1's card line and this
+   phase alone;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -311,8 +329,10 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -490,6 +510,261 @@ def bit_identical(got, want, what: str) -> int:
     return 0
 
 
+HUFFMAN_KERNEL_NAMES = ("unstuff_count_kernel", "unstuff_write_kernel",
+                        "freeze_status_kernel", "setup_kernel", "sync_kernel",
+                        "scan_kernel", "write_kernel")
+
+
+def huffman_split(paths) -> dict:
+    """Device ms and launches of each entropy-decode kernel in one decode
+    of each JPEG at `paths` (torch.profiler, after a warm-up decode), by
+    file name.  Phase 24b runs it in a child process of its own: after the
+    earlier phases a profiler session in the smoke's process records no
+    device time for these launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from libultrahdr_tpu_torch.jpeg import huffman_kernel as hk
+    from libultrahdr_tpu_torch.jpeg.decoder import parse_jpeg
+    names = re.compile(r"(?<![A-Za-z_])(" + "|".join(HUFFMAN_KERNEL_NAMES)
+                       + r")(?![A-Za-z_])")
+    out = {}
+    for path in map(pathlib.Path, paths):
+        data = path.read_bytes()
+        info = parse_jpeg(data)
+        plan = hk.scan_plan(info)
+        staged = hk.stage(data, info.scan_offset, plan).to("cuda")
+        hk.decode(staged, plan)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hk.decode(staged, plan)
+            torch.cuda.synchronize()
+        split, keys = {}, []
+        for ev in prof.key_averages():
+            keys.append(ev.key[:80])
+            m = names.search(ev.key)
+            t = ev.self_device_time_total or ev.device_time_total
+            if m and t > 0:
+                n, ms = split.get(m.group(1), (0, 0.0))
+                split[m.group(1)] = (n + ev.count, ms + t / 1e3)
+        out[path.name] = split or {"no device time recorded": keys[:8]}
+    return out
+
+
+def huffman_phase(card: str) -> dict:
+    """Phase 24 (the module docstring); returns the kernel's record row and
+    its launches."""
+    import numpy as np
+    import torch
+    from libultrahdr_tpu_torch import api, fused, testing
+    from libultrahdr_tpu_torch.errors import UhdrError
+    from libultrahdr_tpu_torch.jpeg import huffman_kernel as hk, native
+    from libultrahdr_tpu_torch.jpeg.decoder import parse_jpeg
+    from libultrahdr_tpu_torch.jpegr import JpegR
+    from libultrahdr_tpu_torch.types import ColorTransfer as CT, ImgFmt
+    from uhdrbench import harness
+    t24 = time.perf_counter()
+    dev = torch.device("cuda")
+    kern = hk.HUFFMAN_KERNEL
+    spent = [-kern.launches]   # the phase's launches, across zero()
+
+    def zero():
+        """The kernel's counts set to 0 before a driven path."""
+        spent[0] += kern.launches
+        kern.launches = kern.host_redecodes = 0
+
+    def prepared(data: bytes):
+        info = parse_jpeg(data)
+        plan = hk.scan_plan(info)
+        return info, plan, hk.stage(data, info.scan_offset, plan).to(dev)
+
+    def host(data: bytes, info):
+        comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
+                 for c in info.components]
+        plan = hk.scan_plan(info)
+        return native.decode_scan(
+            data[info.scan_offset:], comps, plan.mcus_w, plan.mcus_h,
+            [info.dc_tables.get(i) for i in range(4)],
+            [info.ac_tables.get(i) for i in range(4)], 0)[0]
+
+    def equal(planes, want) -> bool:
+        return len(planes) == len(want) and all(
+            np.array_equal(p.cpu().numpy(), w) for p, w in zip(planes, want))
+
+    # (a) edge cases, the goldens, the faults
+    goldens = {name: bytes(testing.load_golden(name)[0]["jpegr"])
+               for name in testing.golden_names()}
+    cases = list(testing.huffman_edge_cases())
+    for name, data in goldens.items():
+        primary, gm = JpegR.extract_primary_and_gainmap(data)
+        cases += [(f"{name} base", primary, 64), (f"{name} map", gm, 64)]
+    for name, data, bits in cases:
+        info, plan, staged = prepared(data)
+        got, status = hk.decode(staged, plan, sub_bits=bits)
+        plain, plain_status = hk.decode_plain(staged, plan, bits)
+        if int(status) or int(plain_status) or not all(
+                torch.equal(a, b) for a, b in zip(got, plain)) \
+                or not equal(got, host(data, info)):
+            raise AssertionError(f"phase 24a {name}: status {int(status)} / "
+                                 f"plain {int(plain_status)}, or planes != "
+                                 "plain / host")
+    faults = testing.huffman_fault_cases()
+    for name, data in faults:
+        _, plan, staged = prepared(data)
+        status = int(hk.decode(staged, plan, sub_bits=64)[1])
+        plain_status = int(hk.decode_plain(staged, plan, 64)[1])
+        if not status or status != plain_status:
+            raise AssertionError(f"phase 24a fault {name}: status {status}, "
+                                 f"plain {plain_status}")
+    log(f"phase 24a entropy decode == plain == native.decode_scan on "
+        f"{len(cases)} scans ({len(cases) - 2 * len(goldens)} edge cases, "
+        f"{len(goldens)} goldens' bases and maps), status == plain's and "
+        f"nonzero on {len(faults)} faults | {card}")
+
+    # (b) the benchmark's 12 MP files
+    rows, files, jpegs = {}, {}, {}
+    split_dir = pathlib.Path(tempfile.mkdtemp(prefix="huffman_split_"))
+    for cell in ("android_12mp.decode_hlg_c1",
+                 "libdefault_12mp.decode_pq_c4"):
+        c, cfg = harness.load_cell(cell)
+        files[cell] = harness.make_inputs(dict(c, pool=1), cfg,
+                                          2 ** 31 + 11, "cuda")[0]
+        for image, jpeg in zip(("base", "map"),
+                               JpegR.extract_primary_and_gainmap(
+                                   files[cell])):
+            info, plan, staged = prepared(jpeg)
+            got, status = hk.decode(staged, plan)
+            t0 = time.perf_counter()
+            plain, plain_status = hk.decode_plain(staged, plan)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            host_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                want = host(jpeg, info)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            if int(status) or int(plain_status) or not equal(got, want) \
+                    or not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                raise AssertionError(f"phase 24b {cell} {image}: status "
+                                     f"{int(status)}, or planes != host")
+            ms = cuda_ms(lambda: hk.decode(staged, plan), 20)
+            key = cell.split(".")[0], image
+            jpegs[key] = split_dir / f"{key[0]}_{image}.jpg"
+            jpegs[key].write_bytes(jpeg)
+            scan_bytes = staged.numel() - hk.HEADER_BYTES
+            moved = scan_bytes + 2 * plan.blocks * 64
+            row = {"ms": ms, "plain_ms": plain_ms,
+                   "host_ms": float(np.median(host_ms)),
+                   "bound_ms": moved / 3.35e12 * 1e3, "bound_by": "bytes",
+                   "scan_bytes": scan_bytes, "blocks": plan.blocks}
+            rows[key] = row
+            log(f"phase 24b {cell} {image}: {scan_bytes} scan bytes, "
+                f"{plan.blocks} blocks: kernel {ms:.4f} ms (bound "
+                f"{row['bound_ms']:.4f} ms, {moved / 1e6:.2f} MB, "
+                f"{100 * row['bound_ms'] / ms:.2f}%), plain {plain_ms:.1f} ms"
+                f" on the card's tensors, host native.decode_scan "
+                f"{row['host_ms']:.1f} ms (median of 3); == plain == host"
+                f" | {card}")
+    child = subprocess.run(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--huffman-split",
+         *map(str, jpegs.values())], capture_output=True, text=True,
+        timeout=600, cwd=HERE)
+    shutil.rmtree(split_dir)
+    if child.returncode:
+        raise AssertionError(f"phase 24b split child: exit "
+                             f"{child.returncode}: {child.stderr[-2000:]}")
+    splits = json.loads(child.stdout.strip().splitlines()[-1])
+    for key, path in jpegs.items():
+        split = rows[key]["split"] = splits[path.name]
+        text = ", ".join(f"{k} {ms:.4f} ({n})" for k, (n, ms) in sorted(
+            split.items(), key=lambda kv: -kv[1][1])) \
+            if "no device time recorded" not in split else str(split)
+        log(f"phase 24b {key[0]} {key[1]}: device ms a kernel (launches) "
+            f"in one decode, torch.profiler in a child process: {text} | "
+            f"{card}")
+
+    # (c) the public API against the host route
+    def run(data, ct):
+        dec = api.UhdrDecoder(device="cuda")
+        dec.set_image(data)
+        dec.set_out_color_transfer(ct)
+        dec.set_out_img_format(ImgFmt.RGBA1010102)
+        out = np.asarray(dec.decode().planes[0]).copy()
+        return out, np.asarray(dec.get_decoded_gainmap_image().planes[0])
+
+    real_plan = fused.card_scan_plan
+    path_launches = 0   # the public API's, read from counts zeroed before
+    for cell, data in files.items():
+        for ct in (CT.HLG, CT.PQ):
+            zero()
+            out, gm = run(data, ct)
+            if kern.launches != 2 or kern.host_redecodes:
+                raise AssertionError(f"phase 24c {cell} {ct.name}: "
+                                     f"{kern.launches} launches, "
+                                     f"{kern.host_redecodes} re-decodes")
+            path_launches += kern.launches
+            fused.card_scan_plan = lambda info, device: None
+            try:
+                ref_out, ref_gm = run(data, ct)
+            finally:
+                fused.card_scan_plan = real_plan
+            if not (np.array_equal(out, ref_out)
+                    and np.array_equal(gm, ref_gm)):
+                raise AssertionError(f"phase 24c {cell} {ct.name}: output "
+                                     "or map != the host route's")
+    log(f"phase 24c UhdrDecoder.decode of the two 12 MP files to HLG and "
+        f"PQ: 2 launches a request, no re-decode, output and map == the "
+        f"host route's | {card}")
+
+    # (d) the card fuzz through the fused route
+    rs = np.random.RandomState(24)
+    names = sorted(goldens)
+    jr = JpegR(device="cuda")
+    r0, n_mut, refused_both = kern.host_redecodes, 0, 0
+    for i in range(400):
+        data = bytearray(goldens[names[i % len(names)]])
+        primary, gm = JpegR.extract_primary_and_gainmap(bytes(data))
+        which = primary if rs.randint(2) else gm
+        start = bytes(data).find(which) + parse_jpeg(which).scan_offset
+        end = bytes(data).find(which) + len(which) - 2
+        for _ in range(rs.randint(1, 4)):
+            data[rs.randint(start, end)] ^= 1 << rs.randint(8)
+        data = bytes(data)
+        got = []
+        for card_route in (True, False):
+            if not card_route:
+                fused.card_scan_plan = lambda info, device: None
+            try:
+                dest, _, gmi = jr.decode(data, CT.HLG, return_gainmap=True)
+                got.append((np.asarray(dest.planes[0]).copy(),
+                            np.asarray(gmi.planes[0]).copy()))
+            except UhdrError as e:
+                got.append(("error", int(e.code)))
+            finally:
+                fused.card_scan_plan = real_plan
+        (a, b) = got
+        if isinstance(a[0], str) or isinstance(b[0], str):
+            if a != b:
+                raise AssertionError(f"phase 24d mutant {i}: {a} vs {b}")
+            refused_both += 1
+        elif not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"phase 24d mutant {i}: card route's "
+                                 "output != the host route's")
+        n_mut += 1
+    redecodes = kern.host_redecodes - r0
+    log(f"phase 24d card fuzz (seed 24): {n_mut} mutants of the "
+        f"{len(names)} goldens (1-3 bit flips in a scan) through JpegR."
+        f"decode to HLG, card route == host route on every output and map "
+        f"({refused_both} refused by both), {redecodes} decoded again on "
+        f"the host after a nonzero status | {card}")
+    launches = spent[0] + kern.launches
+    log(f"phase 24: {launches} entropy-decode launches in all, "
+        f"{path_launches} of them on the public API's path (24c); "
+        f"{time.perf_counter() - t24:.1f} s | {card}")
+    return {"row": rows["android_12mp", "base"], "rows": rows,
+            "launches": launches, "path_launches": path_launches,
+            "redecodes": redecodes}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -498,7 +773,16 @@ def main(argv=None) -> int:
                          "libultrahdr_tpu_torch/csrc/wire_kernel.cu, made "
                          "outside the checkout: phase 18d times its two "
                          "kernels beside the current ones")
+    ap.add_argument("--only-huffman", action="store_true",
+                    help="phase 1's card line and phase 24 alone")
+    ap.add_argument("--huffman-split", nargs="+", type=pathlib.Path,
+                    metavar="JPEG", help="print the entropy decode's "
+                    "device ms a kernel for each JPEG as one JSON line "
+                    "(phase 24b's child) and exit")
     args = ap.parse_args(argv)
+    if args.huffman_split:
+        print(json.dumps(huffman_split(args.huffman_split)), flush=True)
+        return 0
     previous_wire_kernel = (args.previous_wire_kernel.resolve()
                             if args.previous_wire_kernel else None)
     import numpy as np
@@ -518,6 +802,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
         "name and power limit (nvidia-smi):")
     log(card)
+    if args.only_huffman:
+        p24 = huffman_phase(card)
+        log(json.dumps({k: v for k, v in p24.items() if k != "rows"}))
+        return 0
 
     sys.path.insert(0, str(HERE))
     import libultrahdr_tpu_torch as port
@@ -527,6 +815,7 @@ def main(argv=None) -> int:
                          f"not from this checkout ({HERE})")
     from libultrahdr_tpu_torch import fused, jpegr, testing
     from libultrahdr_tpu_torch.jpeg import dct, device_entropy, native
+    from libultrahdr_tpu_torch.jpeg import huffman_kernel
     from libultrahdr_tpu_torch.jpeg import decoder as jpeg_decoder
     from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
     from libultrahdr_tpu_torch.ops import apply as apply_ops
@@ -543,7 +832,8 @@ def main(argv=None) -> int:
                "forward_dct": dct.FORWARD_DCT_KERNEL,
                "wire_unslice": wk.UNSLICE_KERNEL,
                "down_pack": wk.DOWN_PACK_KERNEL,
-               "stitch": stk.STITCH_KERNEL}
+               "stitch": stk.STITCH_KERNEL,
+               "huffman": huffman_kernel.HUFFMAN_KERNEL}
     # every scan-kernel launch read on a path, for the records
     dct_launches = [0]
     # every scan the paths build (dct.scan_inputs, one kernel launch a
@@ -613,7 +903,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
             ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB),
-            ("wire", wk.WIRE_LIB), ("stitch", stk.STITCH_LIB))
+            ("wire", wk.WIRE_LIB), ("stitch", stk.STITCH_LIB),
+            ("entropy decode", huffman_kernel.HUFFMAN_LIB))
     from libultrahdr_tpu_torch.capi import build as capi_build
 
     def build_capi():
@@ -631,7 +922,7 @@ def main(argv=None) -> int:
             f.result()
         capi_shim, capi_test_exe, capi_roundtrip_exe = capi_fut.result()
         capi_inproc_shim = inproc_fut.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the six "
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the seven "
         "kernel libraries (nvcc sm_90a), the host C++ and the C ABI shim "
         "(two variants) with its C programs, in parallel")
     for kname, lib in libs:
@@ -2520,7 +2811,10 @@ def main(argv=None) -> int:
     agtm_dec, _ = decode_fx(agtm_file, CT.HLG, [])
     torch.cuda.synchronize()
     agtm_dec_ms = (time.perf_counter() - t0) * 1e3
-    agtm_launches = read_counts("AGTM file decode", {"apply_gainmap": 1})
+    # the general path's JPEG encoder writes no DRI: both scans of the
+    # file are entropy-decoded on the card
+    agtm_launches = read_counts("AGTM file decode", {"apply_gainmap": 1,
+                                                     "huffman": 2})
     primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
         jr_a._parse_jpegr(agtm_file)
     plan = jr_a._fused_plan(pinfo, gm_info, md, sdr_cg, gm_cg)
@@ -3833,9 +4127,11 @@ def main(argv=None) -> int:
             f"kept {fuzz['saved']}\n{fuzz.get('stderr', '')}")
     read_counts("card fuzz (in its child; none here)", {})
     child_launches = fuzz["launches"]     # per kernel, sanitize_kernels' keys
+    # a stacked mutation may take a seed's DRI away: its scans then go to
+    # the card's entropy decoder
     if child_launches["apply_gainmap"] == 0 or any(
             n for k, n in child_launches.items()
-            if not k.startswith("apply_gainmap")):
+            if not k.startswith("apply_gainmap") and k != "huffman"):
         raise AssertionError(f"phase 20b card fuzz launches {child_launches}")
     fuzz_launches = {   # read_counts' keys: apply_gainmap counts both
         "apply_gainmap": child_launches["apply_gainmap"]
@@ -4283,9 +4579,13 @@ def main(argv=None) -> int:
                 raise AssertionError(f"phase 23 {gname}: the microbatcher "
                                      "retried a request alone")
             n_apply = 0 if route == "decode_host" else 3
+            # the fused routes decode both DRI-less scans on the card, once
+            # an HDR output; the host engine and the general path do not
+            fused_route = route not in ("decode_host", "general path")
             checked = read23(f"{gname} {route}", {
                 "apply_gainmap": n_apply,
-                "apply_linear": n_apply // 3})
+                "apply_linear": n_apply // 3,
+                "huffman": 2 * len(hdr23) * fused_route})
             dbs = {ct: gate23(gname, route, ct, out)
                    for ct, out in outs23.items()}
             if route.startswith("decode_to_device"):
@@ -4308,9 +4608,13 @@ def main(argv=None) -> int:
             list(files23.values()), ct)
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
+        # no other golden shares the first one's fused-route signature, so
+        # no batch group forms: each file takes the per-image route, whose
+        # entropy decodes of both DRI-less scans run on the card
         checked = read23(f"decode_to_device_batch {ct.name}",
                          {"apply_gainmap": len(files23),
-                          "apply_linear": len(files23) * (ct == CT.LINEAR)})
+                          "apply_linear": len(files23) * (ct == CT.LINEAR),
+                          "huffman": 2 * len(files23)})
         dbs = []
         for gname, (got, _) in zip(files23, outs_b):
             dbs.append(gate23(gname, "decode_to_device_batch", ct, got))
@@ -4431,7 +4735,9 @@ def main(argv=None) -> int:
             effects=effects_of(spec))[0]
         dev_db = testing.psnr(testing.host_packed(dev_fx),
                                       fx_z[f"{fx_name}_hlg"])
-        checked = read23(f"effect {fx_name}", {"apply_gainmap": 2})
+        # UhdrDecoder's HLG decode and decode_to_device's, two scans each
+        checked = read23(f"effect {fx_name}", {"apply_gainmap": 2,
+                                               "huffman": 4})
         gate = testing.RESIZE_GATE_DB if resize else testing.DECODE_GATE_DB
         if not (db >= gate and dev_db >= gate):
             raise AssertionError(f"phase 23 effect {fx_name} HLG: host "
@@ -4455,6 +4761,9 @@ def main(argv=None) -> int:
         f"{max(c for c, _ in enc23.values()):.2f} dB; "
         f"{len(testing.golden_effects())} effect queues; launches "
         f"{p23_launches}; {time.perf_counter() - t23:.1f} s | {card}")
+
+    # ---- phase 24: the entropy decode on the card ---------------------------
+    p24 = huffman_phase(card)
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
@@ -4521,7 +4830,10 @@ def main(argv=None) -> int:
         f"{p23_launches['pack_scan']}, apply "
         f"{p23_launches['apply_gainmap']} (LINEAR "
         f"{p23_launches['apply_linear']}), scan kernel "
-        f"{p23_launches['forward_dct']}")
+        f"{p23_launches['forward_dct']}, entropy decode "
+        f"{p23_launches['huffman']}; phase 24 (the entropy decode) "
+        f"{p24['launches']}, {p24['path_launches']} of them through "
+        f"UhdrDecoder.decode")
     log(json.dumps({"kernels": [
         record("pack_scan", "pack_kernel.cu", "jpeg/pack_kernel.py:595",
                p010_launches["pack_scan"] + rgb_launches["pack_scan"]
@@ -4572,7 +4884,13 @@ def main(argv=None) -> int:
         # the JAX package stitches a K-batch with XLA ops, no pallas_call
         record("stitch", "stitch_kernel.cu",
                "fused.py:2608 (_stitch_image_streams)", kb_stitch,
-               stitch_rows["K = 8"], 0)]}))
+               stitch_rows["K = 8"], 0),
+        # the JAX package Huffman-decodes on the host, no pallas_call
+        # (jpeg/native.py:565 decode_scan); the row is the HLG base's
+        record("huffman", "huffman_kernel.cu",
+               "jpeg/native.py:565 (decode_scan, host C++)",
+               p23_launches["huffman"] + p24["path_launches"], p24["row"],
+               0)]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {

@@ -52,9 +52,13 @@ interval per MCU row, as the JAX package's fused encode does.  The JAX
 package packs the two scans apart; the joined bytes are the same.
 
 **Decode** (the JAX ``_decode_device_core``): the host splits and parses the
-file and Huffman-decodes both scans (``decode_coefficients``, host C++),
-uploads the raw int16 coefficient planes (``upload_coeff_planes``), and the
-device runs, in eager PyTorch plus the hand-written apply kernel:
+file.  A scan without restart markers (``card_scan_plan``: baseline, no
+DRI, no coefficient wire) goes up as its bytes and is Huffman-decoded on
+the card (``decode_coefficients_card``, ``jpeg/huffman_kernel``), its
+status word read after the request's download (``ScanStatus``); any other
+scan is Huffman-decoded on the host (``decode_coefficients``, host C++)
+and its raw int16 coefficient planes go up (``upload_coeff_planes``).  The
+device then runs, in eager PyTorch plus the hand-written apply kernel:
 
 1. dequantisation and the bit-exact islow IDCT of every plane
                                         (jpeg/dct.inverse_plane)
@@ -100,9 +104,9 @@ import torch
 from .container import icc as icc_mod
 from .container import jpegr_container
 from .errors import invalid_param
-from .jpeg import dct, device_entropy, native, pack_kernel
+from .jpeg import dct, device_entropy, huffman_kernel, native, pack_kernel
 from .jpeg.dct import inverse_plane
-from .jpeg.decoder import _ycc_to_rgb
+from .jpeg.decoder import _ycc_to_rgb, quant_tables, scan_format
 from .jpeg.decoder import decode_coefficients  # noqa: F401  (the decode's)
 from .jpeg.encoder import assemble_jpeg
 from .jpeg.dct import pad_edge as _pad_edge  # noqa: F401  (JAX's name)
@@ -1059,6 +1063,59 @@ def encode_api1_fused(jr, hdr, sdr, quality: int, exif: bytes | None, *,
 DECODE_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
 
 
+def card_scan_plan(info, device) -> huffman_kernel.ScanPlan | None:
+    """The plan of an image's entropy decode on the card
+    (``huffman_kernel.scan_plan``), or None where the host decodes it: a
+    device other than CUDA, the coefficient wire (UHDR_TPU_WIRE) on, or an
+    image that the kernel does not take (progressive, a restart interval:
+    every file the port's own encoders write carries one)."""
+    if torch.device(device).type != "cuda" or wire.coeff_wire_enabled():
+        return None
+    return huffman_kernel.scan_plan(info)
+
+
+def decode_coefficients_card(data: bytes, info, plan, device,
+                             status: torch.Tensor, *, image: str):
+    """The card's counterpart of ``decode_coefficients`` for an image that
+    ``card_scan_plan`` takes: the scan's bytes staged in pinned memory
+    behind the kernel's header and sent up (``decode.upload``, `bytes` the
+    scan's), then one entropy decode into fresh coefficient planes on
+    `device`, its status word into `status` (a one-word tensor there).
+    Returns (planes, quant tables, fmt) without waiting for the card; the
+    ``decode.huffman`` span (``engine`` "device") holds the host's part."""
+    fmt, mcus_w, mcus_h = scan_format(info)
+    with stage("decode.huffman", image=image, mcus=mcus_w * mcus_h,
+               engine="device"):
+        with stage("decode.upload", bytes=len(data) - info.scan_offset):
+            staged = huffman_kernel.stage(data, info.scan_offset, plan,
+                                          pin=True).to(device,
+                                                       non_blocking=True)
+        planes, _ = huffman_kernel.decode(staged, plan, status)
+    return planes, quant_tables(info), fmt
+
+
+class ScanStatus:
+    """The status words of a request's entropy decodes on the card, one an
+    image (base, map): zeroed on the card, copied to pinned host memory
+    behind the decodes (``queue_read``), and read once the request's
+    download has waited for the card (``faulty``)."""
+
+    def __init__(self, device):
+        self.words = torch.zeros(2, dtype=torch.int32, device=device)
+        self.host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def queue_read(self):
+        self.host.copy_(self.words, non_blocking=True)
+        self.done.record()
+
+    def faulty(self) -> bool:
+        """Whether a decode set a status bit.  It waits for the copy, which
+        a download of the request's output has already waited for."""
+        self.done.synchronize()
+        return bool(self.host.any())
+
+
 def upload_coeff_planes(coeffs, device: torch.device):
     """Raw upload of (bh, bw, 64) int16 coefficient planes (host arrays or
     pinned tensors), one transfer each; the ``decode.upload`` span holds
@@ -1087,6 +1144,21 @@ def _decode_sdr_and_gain(base_coeffs, base_qts, gm_coeffs, gm_qts, *, h: int,
     return sdr_yuv, gm_u8
 
 
+_DISPATCH_LOCKS: dict = {}
+_DISPATCH_LOCKS_GUARD = threading.Lock()
+
+
+def dispatch_lock(device: torch.device) -> threading.Lock:
+    """The lock that a decode's dispatch onto `device` holds: threads
+    decoding at once queue their eager launches (about 900 a 12 MP
+    request) one request's burst after another.  Launched from four
+    threads at once they cost four times the host time a request
+    (``PERF.md`` §5)."""
+    with _DISPATCH_LOCKS_GUARD:
+        return _DISPATCH_LOCKS.setdefault(torch.device(device),
+                                          threading.Lock())
+
+
 def _decode_device_core(base_coeffs, base_qts, gm_coeffs, gm_qts,
                         meta_arrays, weight, *, h: int, w: int,
                         sampling_key: str, gm_channels: int, scale_k: int,
@@ -1094,16 +1166,24 @@ def _decode_device_core(base_coeffs, base_qts, gm_coeffs, gm_qts,
                         hdr_cg: ColorGamut, use_base_cg: bool):
     """Device half of decode on the coefficients' device: dequant + IDCT of
     base and gain map + apply-gainmap + output packing (the
-    jpegr.cpp:1384-1699 pipeline with the entropy decode left on host).
-    Returns (packed output, gain map u8 (C, mh, mw)); the
-    ``decode.dispatch`` span holds the host's time queuing the launches."""
-    with stage("decode.dispatch"):
-        sdr_yuv, gm_u8 = _decode_sdr_and_gain(
-            base_coeffs, base_qts, gm_coeffs, gm_qts, h=h, w=w,
-            sampling_key=sampling_key, gm_channels=gm_channels,
-            scale_k=scale_k)
-        packed = apply_ops.apply_gainmap_core(
-            sdr_yuv, gm_u8, meta_arrays, scale_k=scale_k, weight=weight,
-            out_ct=out_ct, sdr_cg=sdr_cg, hdr_cg=hdr_cg,
-            use_base_cg=use_base_cg)
-        return packed, gm_u8
+    jpegr.cpp:1384-1699 pipeline after the entropy decode).  Returns
+    (packed output, gain map u8 (C, mh, mw)).  The ``decode.dispatch_wait``
+    span holds the wait for the device's ``dispatch_lock``, the
+    ``decode.dispatch`` span the host's time queuing the launches under
+    it."""
+    lock = dispatch_lock(base_coeffs[0].device)
+    with stage("decode.dispatch_wait"):
+        lock.acquire()
+    try:
+        with stage("decode.dispatch"):
+            sdr_yuv, gm_u8 = _decode_sdr_and_gain(
+                base_coeffs, base_qts, gm_coeffs, gm_qts, h=h, w=w,
+                sampling_key=sampling_key, gm_channels=gm_channels,
+                scale_k=scale_k)
+            packed = apply_ops.apply_gainmap_core(
+                sdr_yuv, gm_u8, meta_arrays, scale_k=scale_k, weight=weight,
+                out_ct=out_ct, sdr_cg=sdr_cg, hdr_cg=hdr_cg,
+                use_base_cg=use_base_cg)
+            return packed, gm_u8
+    finally:
+        lock.release()

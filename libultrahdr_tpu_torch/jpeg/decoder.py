@@ -323,22 +323,36 @@ def _decode_progressive_coeffs(data: bytes, info: JpegInfo, comps,
     return coeff_arrays
 
 
+def scan_format(info: JpegInfo) -> tuple[ImgFmt, int, int]:
+    """(sampling format, MCUs across, MCUs down) of a parsed image,
+    refusing what ``decode_coefficients`` refuses before it decodes."""
+    _validate(info)
+    fmt = get_output_sampling_format(info)
+    hmax = max(c.h for c in info.components)
+    vmax = max(c.v for c in info.components)
+    return fmt, -(-info.width // (8 * hmax)), -(-info.height // (8 * vmax))
+
+
+def quant_tables(info: JpegInfo) -> list[np.ndarray]:
+    """The natural-order quant table of each component, int32."""
+    return [np.asarray(require_qtable(info, c), np.int32)
+            for c in info.components]
+
+
 def decode_coefficients(data: bytes, info: JpegInfo, *,
                         image: str | None = None):
     """Host Huffman decode of a baseline or progressive JPEG to MCU-padded
     coefficient arrays + natural-order quant tables per component (the
     front half of ``decode_to_planes``, without the IDCT).  A
-    ``decode.huffman`` span holds it, with its MCUs and `image` (``base``
-    or ``map`` of a JPEG_R)."""
-    _validate(info)
-    fmt = get_output_sampling_format(info)
+    ``decode.huffman`` span holds it, with its MCUs, `image` (``base`` or
+    ``map`` of a JPEG_R) and ``engine`` "host"."""
+    fmt, mcus_w, mcus_h = scan_format(info)
     hmax = max(c.h for c in info.components)
     vmax = max(c.v for c in info.components)
-    mcus_w = -(-info.width // (8 * hmax))
-    mcus_h = -(-info.height // (8 * vmax))
     comps = [{"h": c.h, "v": c.v, "dc_tbl": c.dc_tbl, "ac_tbl": c.ac_tbl}
              for c in info.components]
-    with stage("decode.huffman", image=image, mcus=mcus_w * mcus_h):
+    with stage("decode.huffman", image=image, mcus=mcus_w * mcus_h,
+               engine="host"):
         if info.progressive:
             coeffs = _decode_progressive_coeffs(data, info, comps, mcus_w,
                                                 mcus_h, hmax, vmax)
@@ -348,9 +362,7 @@ def decode_coefficients(data: bytes, info: JpegInfo, *,
             coeffs, _ = native.decode_scan(data[info.scan_offset:], comps,
                                            mcus_w, mcus_h, dc, ac,
                                            info.restart_interval)
-    qts = [np.asarray(require_qtable(info, c), np.int32)
-           for c in info.components]
-    return coeffs, qts, fmt
+    return coeffs, quant_tables(info), fmt
 
 
 _ENGINES = ("device", "host")

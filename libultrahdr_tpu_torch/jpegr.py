@@ -29,7 +29,11 @@ route a stream takes is decided from its parsed headers before anything is
 uploaded or launched (``_fused_plan``); both routes end in the same apply
 kernel launch (``apply_gainmap``).  The SRGB output (RGBA8888) is the base
 image's own RGB decode on the device, and its gain map is decoded only when
-the caller asks for it.
+the caller asks for it.  On the fused route of ``decode`` and of
+``decode_to_device``'s per-image route, a scan without restart markers is
+Huffman-decoded on the card (``_fused_coefficients``); the batch, the
+general path, the host engine and the coefficient wire decode every scan on
+the host.
 
 ``decode_host`` is the JAX package's native host engine: the Huffman decode,
 a float IDCT and the apply in the host C++ (``jpeg/native.py``), touching no
@@ -70,6 +74,7 @@ from .container.xmp import JPEGR_VERSION  # noqa: F401  (JAX's name)
 from .editor import resize_channels
 from .errors import UhdrError, UhdrErrorCode, invalid_param, unsupported
 from .jpeg import native
+from .jpeg.huffman_kernel import HUFFMAN_KERNEL
 from .jpeg.decoder import (decode_coefficients, decode_to_planes,
                            decode_to_rgb, decode_to_rgba,
                            get_output_sampling_format, parse_jpeg,
@@ -677,23 +682,58 @@ class JpegR:
 
     def _try_decode_fused(self, plan: dict, primary, pinfo, gm_jpeg,
                           gm_info, metadata, output_ct, max_display_boost,
-                          gm_cg):
+                          gm_cg, card: bool = True):
         """The fused decode of a stream that `plan` (``_fused_plan``) takes:
         (dest RawImage, gainmap RawImage) in host memory, the output
         downloaded raw or, with UHDR_TPU_WIRE_DOWN set, through the download
-        wire."""
+        wire.  Once the output's download has waited for the card, the
+        status words of the card's entropy decodes are read; a nonzero one
+        discards the result, and the request is decoded again with every
+        scan on the host (`card` False), counted in
+        ``HUFFMAN_KERNEL.host_redecodes``."""
+        base, gm, status = self._fused_coefficients(
+            primary, pinfo, gm_jpeg, gm_info, card)
         packed_dev, gm_dev = self._decode_planned(
-            plan, fused.decode_coefficients(primary, pinfo, image="base"),
-            fused.decode_coefficients(gm_jpeg, gm_info, image="map"),
-            metadata, output_ct, max_display_boost)
+            plan, base, gm, metadata, output_ct, max_display_boost)
         if wire.down_wire_enabled():
             fetch = fused.fetch_packed_f16 \
                 if ColorTransfer(output_ct) == ColorTransfer.LINEAR \
                 else fused.fetch_packed_1010102
             packed_dev = fetch(packed_dev, h=pinfo.height, w=pinfo.width)
-        return (_output_image(packed_dev, plan["hdr_cg"], output_ct,
-                              pinfo.width, pinfo.height),
-                _gainmap_image(gm_dev, gm_cg))
+        dest = _output_image(packed_dev, plan["hdr_cg"], output_ct,
+                             pinfo.width, pinfo.height)
+        if status is not None and status.faulty():
+            HUFFMAN_KERNEL.host_redecodes += 1
+            return self._try_decode_fused(
+                plan, primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
+                max_display_boost, gm_cg, card=False)
+        return dest, _gainmap_image(gm_dev, gm_cg)
+
+    def _fused_coefficients(self, primary, pinfo, gm_jpeg, gm_info,
+                            card: bool = True):
+        """Both images' entropy decodes for ``_decode_planned``: (base, gain
+        map, ``fused.ScanStatus`` or None).  With `card`, an image that
+        ``fused.card_scan_plan`` takes is decoded on ``self.device``
+        (``fused.decode_coefficients_card``, its status word in the
+        ScanStatus); every other image on the host
+        (``fused.decode_coefficients``).  The status is None when neither
+        image went to the card."""
+        device = torch.device(self.device)
+        status = None
+        out = []
+        for i, (image, jpeg, info) in enumerate((
+                ("base", primary, pinfo), ("map", gm_jpeg, gm_info))):
+            plan = fused.card_scan_plan(info, device) if card else None
+            if plan is None:
+                out.append(fused.decode_coefficients(jpeg, info, image=image))
+                continue
+            status = status or fused.ScanStatus(device)
+            out.append(fused.decode_coefficients_card(
+                jpeg, info, plan, device, status.words[i:i + 1],
+                image=image))
+        if status is not None:
+            status.queue_read()
+        return out[0], out[1], status
 
     @staticmethod
     def _fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
@@ -737,12 +777,14 @@ class JpegR:
     def _decode_planned(self, plan: dict, base, gm, metadata, output_ct,
                         max_display_boost, device=None, coeff_wire=None):
         """The device half of a fused decode on `device` (by default
-        ``self.device``) from the host Huffman decode of both images
+        ``self.device``) from the entropy decode of both images
         (``fused.decode_coefficients`` results, the coefficient planes as
-        host arrays or pinned tensors): the upload, ``_decode_device_core``
-        with one apply launch.  Returns (packed output, gain map u8).
+        host arrays or pinned tensors, or ``decode_coefficients_card``
+        results, the planes already on the card): the upload of host
+        planes, ``_decode_device_core`` with one apply launch.  Returns
+        (packed output, gain map u8).
 
-        The planes go up raw, or with UHDR_TPU_WIRE set as one
+        Host planes go up raw, or with UHDR_TPU_WIRE set as one
         ``pack_coeff_wire_best`` blob: `coeff_wire` (a
         ``wire.pack_coeff_blob`` result), packed here when not given."""
         device = torch.device(device or self.device)
@@ -756,8 +798,11 @@ class JpegR:
             planes = wire.upload_coeff_blob(coeff_wire, device)
             base_c, gm_c = planes[:len(base[0])], planes[len(base[0]):]
         else:
-            base_c = fused.upload_coeff_planes(base[0], device)
-            gm_c = fused.upload_coeff_planes(gm[0], device)
+            base_c, gm_c = (
+                planes if isinstance(planes[0], torch.Tensor)
+                and planes[0].device.type != "cpu"
+                else fused.upload_coeff_planes(planes, device)
+                for planes in (base[0], gm[0]))
         return fused._decode_device_core(
             base_c, base[1], gm_c, gm[1],
             apply_ops.metadata_to_arrays(metadata), np.float32(weight),
@@ -765,21 +810,29 @@ class JpegR:
 
     def _decode_fused_device(self, primary, pinfo, gm_jpeg, gm_info,
                              metadata, output_ct, max_display_boost, sdr_cg,
-                             gm_cg):
+                             gm_cg, card: bool = True):
         """Device half of the fused decode on ``self.device``; returns
         (packed output, gain map u8, hdr gamut) with the tensors left on the
         device.  A stream the fused route does not take raises
         ``unsupported``: the device-resident decode has no general path, as
-        in the JAX package."""
+        in the JAX package.  With scans decoded on the card, their status
+        words are read once the card has run the entropy decodes (the
+        stages queued after them run on); a nonzero one sends the request
+        to the host's entropy decode, as ``_try_decode_fused`` does."""
         plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
                                 output_ct)
         if plan is None:
             raise unsupported(
                 "stream shape not supported by the fused decode path")
+        base, gm, status = self._fused_coefficients(
+            primary, pinfo, gm_jpeg, gm_info, card)
         packed, gm_u8 = self._decode_planned(
-            plan, fused.decode_coefficients(primary, pinfo, image="base"),
-            fused.decode_coefficients(gm_jpeg, gm_info, image="map"),
-            metadata, output_ct, max_display_boost)
+            plan, base, gm, metadata, output_ct, max_display_boost)
+        if status is not None and status.faulty():
+            HUFFMAN_KERNEL.host_redecodes += 1
+            return self._decode_fused_device(
+                primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
+                max_display_boost, sdr_cg, gm_cg, card=False)
         return packed, gm_u8, plan["hdr_cg"]
 
     # ------------------------------------------------------------------

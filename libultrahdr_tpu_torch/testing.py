@@ -22,6 +22,10 @@
   any block count; ``unslice_edge_cases`` and ``down_pack_edge_cases``,
   the wire kernels' edge cases at the seams of their CTA runs and tiles,
   placed on the card at their alignment by ``aligned_tensor``;
+- ``dri_less_jpeg``, ``stuffed_jpeg``, ``huffman_edge_cases`` and
+  ``huffman_fault_cases``: baseline JPEGs without restart markers for the
+  card's entropy decoder (``jpeg/huffman_kernel``), with the subsequence
+  size each is decoded at, and streams it must refuse;
 - ``launch_ms``, ``pack_kernel_ms``, ``slot_pack_kernel_ms``: a kernel's
   time on the card without its wrapper's host work;
 - ``check_decoded_close``: the contract between two decodes of one file
@@ -616,6 +620,87 @@ def down_pack_edge_cases(seed: int = 15):
            ("interior tiles, column-0 escapes", rgba1010102(
                chans(200, 100, 12, range(8500, 16300, 700))), 4, 8192, 2)]
     return out
+
+
+def dri_less_jpeg(kind: str, w: int, h: int, quality: int,
+                  seed: int = 3) -> bytes:
+    """A baseline JPEG of the photo scene without restart markers, from the
+    general path's encoder on the CPU (``JpegEncoder.compress``): `kind`
+    "420" (a 4:2:0 base), "444" (an RGB image coded 4:4:4, as a 3-channel
+    gain map) or "400" (a 1-channel gain map)."""
+    from .jpeg.encoder import JpegEncoder
+    p010 = photo_p010(w, h, seed)
+    y = (p010.planes[0] >> 8).astype(np.uint8)
+    if kind == "400":
+        fmt, planes = ImgFmt.YUV400, [y]
+    elif kind == "420":
+        uv = (p010.planes[1] >> 8).astype(np.uint8)
+        fmt, planes = ImgFmt.YUV420, [y, np.ascontiguousarray(uv[:, 0::2]),
+                                      np.ascontiguousarray(uv[:, 1::2])]
+    else:
+        fmt, planes = ImgFmt.RGB888, [np.stack(
+            [y, np.roll(y, 3, 1), 255 - y], -1)]
+    img = RawImage(fmt, ColorGamut.BT709, ColorTransfer.SRGB,
+                   ColorRange.FULL, w, h, planes)
+    return JpegEncoder(torch.device("cpu")).compress(img, quality)
+
+
+def stuffed_jpeg(seed: int = 5) -> bytes:
+    """A 64x48 4:2:0 JPEG whose scan is about a fifth FF bytes, each
+    stuffed with a 00: coefficients whose magnitude bits are all ones, coded
+    by the host coder (``native.encode_scan``), no restart markers."""
+    from .jpeg.encoder import assemble_jpeg
+    from .jpeg.tables import STD_CHROMA_QUANT, STD_LUMA_QUANT
+    rng = np.random.default_rng(seed)
+    mw, mh, sampling = 4, 3, [(2, 2), (1, 1), (1, 1)]
+    comps = []
+    for i, (h, v) in enumerate(sampling):
+        c = ((1 << rng.integers(1, 11, (mh * v, mw * h, 64))) - 1) \
+            * (rng.random((mh * v, mw * h, 64)) < 0.7)
+        c[..., 0] = 1023
+        comps.append({"coeffs": c.astype(np.int16), "h": h, "v": v,
+                      "dc_tbl": min(i, 1), "ac_tbl": min(i, 1)})
+    scan = native.encode_scan(comps, mw, mh, [DC_LUMA, DC_CHROMA, None, None],
+                              [AC_LUMA, AC_CHROMA, None, None])
+    return assemble_jpeg(mh * 16, mw * 16, sampling, STD_LUMA_QUANT,
+                         STD_CHROMA_QUANT, scan)
+
+
+def huffman_edge_cases() -> list[tuple[str, bytes, int]]:
+    """(name, JPEG, subsequence bits) that the card's entropy decoder must
+    decode as ``native.decode_scan`` does: 4:2:0 and 4:4:4 bases and 1-
+    and 3-channel maps at qualities 50-100, subsequences of 32-64 bits (so
+    that the sync runs many rounds) and of the default 1,024, a scan dense
+    in FF 00 stuffing, and the ends of a scan: the padding bits then EOI,
+    no EOI at all, and FF fill bytes before EOI."""
+    base = dri_less_jpeg("420", 96, 64, 90)
+    return [
+        ("420 q50, 32-bit subsequences", dri_less_jpeg("420", 64, 48, 50), 32),
+        ("420 q75, 64 bits", dri_less_jpeg("420", 104, 72, 75), 64),
+        ("420 q90, 48 bits", base, 48),
+        ("420 q100, 1024 bits", dri_less_jpeg("420", 200, 136, 100), 1024),
+        ("444 q95, 64 bits", dri_less_jpeg("444", 96, 64, 95), 64),
+        ("1-channel map q85, 32 bits", dri_less_jpeg("400", 120, 72, 85), 32),
+        ("3-channel map q60, 40 bits", dri_less_jpeg("444", 64, 40, 60), 40),
+        ("dense FF 00 stuffing, 32 bits", stuffed_jpeg(), 32),
+        ("no EOI after the padding bits", base[:-2], 64),
+        ("FF fill bytes before EOI", base[:-2] + b"\xff\xff\xff\xd9", 64),
+    ]
+
+
+def huffman_fault_cases() -> list[tuple[str, bytes]]:
+    """(name, JPEG) streams that the host decodes only by its corrupt-data
+    rules, which the card's entropy decoder must refuse (a nonzero status):
+    a scan cut in half, an RST marker inside a scan that has no restart
+    interval, and a run of stuffed FF bytes (64 ones, so some code is
+    invalid) in the middle of the scan."""
+    from .jpeg.decoder import parse_jpeg
+    d = dri_less_jpeg("420", 128, 96, 90)
+    off = parse_jpeg(d).scan_offset
+    mid = off + (len(d) - off) // 2
+    return [("truncated", d[:mid]),
+            ("RST marker inside", d[:mid] + b"\xff\xd0" + d[mid:]),
+            ("invalid code", d[:mid] + b"\xff\x00" * 8 + d[mid + 16:])]
 
 
 def launch_ms(launch, reps: int = 20, before=None) -> float:

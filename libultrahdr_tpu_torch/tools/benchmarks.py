@@ -187,7 +187,7 @@ ROW_NOTES = {
 
 def kernel_counters() -> dict:
     """The launch counters of the port's kernel wrappers, by name."""
-    from ..jpeg import dct
+    from ..jpeg import dct, huffman_kernel as hk
     from ..jpeg import pack_kernel as pk
     from ..ops import apply_kernel as ak
     from ..ops import stitch_kernel as sk
@@ -198,7 +198,8 @@ def kernel_counters() -> dict:
             "forward_dct": dct.FORWARD_DCT_KERNEL,
             "wire_unslice": wk.UNSLICE_KERNEL,
             "down_pack": wk.DOWN_PACK_KERNEL,
-            "stitch": sk.STITCH_KERNEL}
+            "stitch": sk.STITCH_KERNEL,
+            "huffman": hk.HUFFMAN_KERNEL}
 
 
 def zero_launches() -> None:

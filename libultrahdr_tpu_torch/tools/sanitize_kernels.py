@@ -8,20 +8,24 @@ guards where the sanitizer cannot attach.
         [--fill 0xA5]
     python -m libultrahdr_tpu_torch.tools.sanitize_kernels --repeat N
 
-The nine kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
+The ten kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
 the block and tile packs (``csrc/block_pack_kernel.cu``), the apply's
 HLG/PQ and LINEAR branches (``csrc/apply_kernel.cu``), the scan build
 (``csrc/dct_kernel.cu``), the wire un-slice and the download pack
-(``csrc/wire_kernel.cu``) and the K-batch stitch
-(``csrc/stitch_kernel.cu``).  Their cases are chip_smoke's phase 3, 18a
-and 22 edge cases ("small": one MCU, MCU grids with ragged edges, block
-counts on and off the packs' tiles, an overflowing tile, worst-case
-blocks, grid ties, NaN and out-of-range values, 2-8-bit wires, escape
-lists at and over their cap, ``testing.stitch_edge_cases``) and the 4K
-default shapes ("4k": the 3840x2160 base and 3-channel map scans, 583,200
-blocks in one pack, the 4K apply, wires of 8,294,400 samples, a stitch of
-8 images' rooms of 583,200 blocks).  A stitch is compared on its live
-words, the words its output defines.
+(``csrc/wire_kernel.cu``), the K-batch stitch
+(``csrc/stitch_kernel.cu``) and the entropy decode of scans without
+restart markers (``csrc/huffman_kernel.cu``).  Their cases are
+chip_smoke's phase 3, 18a and 22 edge cases ("small": one MCU, MCU grids
+with ragged edges, block counts on and off the packs' tiles, an
+overflowing tile, worst-case blocks, grid ties, NaN and out-of-range
+values, 2-8-bit wires, escape lists at and over their cap,
+``testing.stitch_edge_cases``, the first ``testing.huffman_edge_cases``
+and every ``huffman_fault_cases`` stream) and the 4K default shapes
+("4k": the 3840x2160 base and 3-channel map scans, 583,200 blocks in one
+pack, the 4K apply, wires of 8,294,400 samples, a stitch of 8 images'
+rooms of 583,200 blocks, a 3840x2160 4:2:0 scan to decode).  A stitch is
+compared on its live words, the words its output defines; an entropy
+decode on its status word, and on its planes where that is 0.
 
 ``--tool T`` (memcheck, racecheck, synccheck, initcheck: the process runs
 under ``compute-sanitizer --tool T``) runs the small cases, memcheck also
@@ -57,7 +61,7 @@ import numpy as np
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 KERNELS = ("pack_scan", "pack_blocks", "pack_tiles", "apply_gainmap",
            "apply_gainmap_linear", "forward_dct", "wire_unslice",
-           "down_pack", "stitch")
+           "down_pack", "stitch", "huffman")
 
 
 def tensors_equal(got, want, what: str):
@@ -81,6 +85,17 @@ def tiles_equal(got, want, what: str):
     live = pk.tile_live_words(wb)
     tensors_equal((gb, pk.stitch_tiles([(gt, live)])),
                   (wb, pk.stitch_tiles([(wt, live)])), what)
+
+
+def huffman_equal(got, want, what: str):
+    """The entropy decode's (planes, status), in host memory: the status
+    words equal, and the planes too where the status is 0 (a refused
+    stream's planes are unspecified)."""
+    (gp, gs), (wp, ws) = got, want
+    tensors_equal((gs.cpu(),), (ws.cpu(),), f"{what}, status")
+    if int(ws) == 0:
+        tensors_equal(tuple(p.cpu() for p in gp),
+                      tuple(p.cpu() for p in wp), what)
 
 
 def as_tuple(x):
@@ -413,19 +428,51 @@ def _stitch_cases(dev, big: bool):
                tensors_equal)
 
 
+def _huffman_cases(dev, big: bool):
+    import functools
+    from .. import testing
+    from ..jpeg import huffman_kernel as hk
+    from ..jpeg.decoder import parse_jpeg
+
+    # the plain version runs on the CPU: a step a symbol, each step's
+    # tensors allocated anew, is far too slow under the guard allocator
+    @functools.lru_cache(None)
+    def staged(make):
+        data = make()
+        info = parse_jpeg(data)
+        plan = hk.scan_plan(info)
+        return hk.stage(data, info.scan_offset, plan), plan
+
+    if big:
+        todo = [("a 3840x2160 4:2:0 scan at q95, 1024-bit subsequences",
+                 lambda: testing.dri_less_jpeg("420", 3840, 2160, 95),
+                 hk.SUB_BITS)]
+    else:
+        todo = [(name, lambda d=data: d, bits) for name, data, bits in
+                testing.huffman_edge_cases()[:4]] \
+            + [(name, lambda d=data: d, 64) for name, data in
+               testing.huffman_fault_cases()]
+    for name, make, bits in todo:
+        yield ("huffman", name,
+               lambda m=make, b=bits: hk.decode(
+                   staged(m)[0].to(dev), staged(m)[1], sub_bits=b),
+               lambda m=make, b=bits: hk.decode_plain(*staged(m), b),
+               huffman_equal)
+
+
 def cases(dev, shapes: str = "small"):
     """Every case at `shapes` ("small", "4k" or "all")."""
     for big in {"small": (False,), "4k": (True,),
                 "all": (False, True)}[shapes]:
         for gen in (_pack_cases, _apply_cases, _scan_cases, _wire_cases,
-                    _stitch_cases):
+                    _stitch_cases, _huffman_cases):
             yield from gen(dev, big)
 
 
 def launch_counts() -> dict:
     """Each kernel's launch count so far (the apply's LINEAR branch
     apart from its HLG/PQ one)."""
-    from ..jpeg import dct, pack_kernel as pk
+    from ..jpeg import dct, huffman_kernel as hk, pack_kernel as pk
     from ..ops import apply_kernel as ak, stitch_kernel as sk
     from ..ops import wire_kernel as wk
     linear = ak.APPLY_KERNEL.linear_launches
@@ -437,7 +484,8 @@ def launch_counts() -> dict:
             "forward_dct": dct.FORWARD_DCT_KERNEL.launches,
             "wire_unslice": wk.UNSLICE_KERNEL.launches,
             "down_pack": wk.DOWN_PACK_KERNEL.launches,
-            "stitch": sk.STITCH_KERNEL.launches}
+            "stitch": sk.STITCH_KERNEL.launches,
+            "huffman": hk.HUFFMAN_KERNEL.launches}
 
 
 def run(dev, shapes: str = "small", repeat: int = 1, log=print) -> dict:

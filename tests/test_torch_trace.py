@@ -60,7 +60,8 @@ def test_decode_records_the_chain(jpegr, empty):
     got = profiling.spans()
     assert collections.Counter(s.name for s in got) == {
         "decode": 1, "decode.parse": 2, "decode.huffman": 2,
-        "decode.upload": 2, "decode.dispatch": 1, "decode.download": 2}
+        "decode.upload": 2, "decode.dispatch_wait": 1, "decode.dispatch": 1,
+        "decode.download": 2}
     by_id = {s.span_id: s for s in got}
     (root,) = [s for s in got if s.parent_id is None]
     assert root.name == "decode"
@@ -87,7 +88,8 @@ def test_decode_records_the_chain(jpegr, empty):
     rep = profiling.stage_report()
     assert {k: v[0] for k, v in rep.items()} == {
         "decode": 1, "decode.parse": 2, "decode.huffman": 2,
-        "decode.upload": 2, "decode.dispatch": 1, "decode.download": 2}
+        "decode.upload": 2, "decode.dispatch_wait": 1, "decode.dispatch": 1,
+        "decode.download": 2}
     assert rep["decode"][1] == pytest.approx(root.seconds)
 
 
@@ -115,7 +117,7 @@ def test_threads_open_their_own_requests(jpegr, empty):
         if s.parent_id is not None:
             assert by_id[s.parent_id].thread == s.thread
             assert by_id[s.parent_id].request_id == s.request_id
-    assert len(got) == 4 * 10
+    assert len(got) == 4 * 11
 
 
 def test_span_on_the_profilers_clock(empty):

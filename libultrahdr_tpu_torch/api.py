@@ -372,14 +372,20 @@ class UhdrEncoder(_Context):
     def encode(self) -> bytes:
         """uhdr_encode (ultrahdr_api.cpp:1173-1310): sail the context,
         select API 0-4 by which resources are set, run JpegR; a second call
-        returns the first result (or raises its error)."""
+        returns the first result (or raises its error).  An ``encode`` span
+        holds the request, the root of its spans (``utils.profiling``),
+        with the HDR intent's format and the map's channels."""
         if self._sailed:
             if self._encode_error is not None:
                 raise self._encode_error
             return self._output
         self._sailed = True
+        hdr = self._raw.get(ImgLabel.HDR)
         try:
-            self._output = self._encode_impl()
+            with stage("encode",
+                       fmt=None if hdr is None else ImgFmt(hdr.fmt).name,
+                       map_channels=3 if self._multi_channel else 1):
+                self._output = self._encode_impl()
             return self._output
         except UhdrError as e:
             self._encode_error = e

@@ -292,11 +292,15 @@ def fetch_blocks_multi(words_dev, parts) -> list[bytes]:
     (the JAX name: there the device's buffer, here its download).
 
     parts: [(block_len_bits u16, bpr), ...] in packing order.  Returns the
-    joined scan bytes per part."""
+    joined scan bytes per part, each join an ``encode.join`` span with the
+    `bytes` it writes."""
     out, off = [], 0
     for bl, bpr in parts:
         need = device_entropy.total_words(bl)
-        out.append(native.join_blocks(words_dev[off:off + need], bl, bpr))
+        with stage("encode.join") as attrs:
+            out.append(native.join_blocks(words_dev[off:off + need], bl,
+                                          bpr))
+            attrs["bytes"] = len(out[-1])
         off += need
     return out
 
@@ -423,28 +427,35 @@ def _onepass_metadata(jr, ct: ColorTransfer,
 def _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                         icc_cg, scale, gm_scan, metadata, exif,
                         gm_ct, gm_cg) -> bytes:
-    quality = int(quality)
-    qluma = scaled_quant_table(STD_LUMA_QUANT, quality)
-    qchroma = scaled_quant_table(STD_CHROMA_QUANT, quality)
-    hmax = base_sampling[0][0]
-    base_jpeg = assemble_jpeg(h, w, list(base_sampling), qluma, qchroma,
-                              base_scan,
-                              icc=icc_mod.write_icc_profile(
-                                  ColorTransfer.SRGB, icc_cg),
-                              dri=-(-w // (8 * hmax)))
-    mq_luma = scaled_quant_table(STD_LUMA_QUANT, jr.map_compress_quality)
-    mq_chroma = scaled_quant_table(STD_CHROMA_QUANT, jr.map_compress_quality)
-    mh, mw = h // scale, w // scale
-    gm_icc = None
-    if not jr.write_xmp:
-        gm_icc = icc_mod.write_icc_profile(gm_ct, gm_cg)
-    sampling = _SAMPLING_444 if jr.use_multi_channel_gainmap else _SAMPLING_400
-    gm_jpeg = assemble_jpeg(mh, mw, list(sampling), mq_luma, mq_chroma,
-                            gm_scan, icc=gm_icc, gainmap_comment=True,
-                            dri=-(-mw // 8))
-    return jpegr_container.append_gainmap(
-        base_jpeg, gm_jpeg, metadata, exif=exif, icc=None,
-        write_iso=jr.write_iso, write_xmp=jr.write_xmp)
+    """Both JPEGs' headers around their scans and the MPF/ISO container,
+    an ``encode.assemble`` span with the `bytes` of the file."""
+    with stage("encode.assemble") as attrs:
+        quality = int(quality)
+        qluma = scaled_quant_table(STD_LUMA_QUANT, quality)
+        qchroma = scaled_quant_table(STD_CHROMA_QUANT, quality)
+        hmax = base_sampling[0][0]
+        base_jpeg = assemble_jpeg(h, w, list(base_sampling), qluma, qchroma,
+                                  base_scan,
+                                  icc=icc_mod.write_icc_profile(
+                                      ColorTransfer.SRGB, icc_cg),
+                                  dri=-(-w // (8 * hmax)))
+        mq = jr.map_compress_quality
+        mq_luma = scaled_quant_table(STD_LUMA_QUANT, mq)
+        mq_chroma = scaled_quant_table(STD_CHROMA_QUANT, mq)
+        mh, mw = h // scale, w // scale
+        gm_icc = None
+        if not jr.write_xmp:
+            gm_icc = icc_mod.write_icc_profile(gm_ct, gm_cg)
+        sampling = (_SAMPLING_444 if jr.use_multi_channel_gainmap
+                    else _SAMPLING_400)
+        gm_jpeg = assemble_jpeg(mh, mw, list(sampling), mq_luma, mq_chroma,
+                                gm_scan, icc=gm_icc, gainmap_comment=True,
+                                dri=-(-mw // 8))
+        out = jpegr_container.append_gainmap(
+            base_jpeg, gm_jpeg, metadata, exif=exif, icc=None,
+            write_iso=jr.write_iso, write_xmp=jr.write_xmp)
+        attrs["bytes"] = len(out)
+    return out
 
 
 def _resolve_scale(jr, img) -> int:
@@ -481,11 +492,13 @@ def upload_p010(img, device: torch.device, packed=None):
     """The two P010 planes on `device` as int16 views of their u16 samples:
     a raw upload, or with UHDR_TPU_WIRE set the API-0 upload wire
     (``wire.upload_p010_wire``; `packed` its (buf, mode) when the caller
-    packed it already)."""
+    packed it already); an ``encode.upload`` span with the planes'
+    `bytes`."""
     planes = _p010_planes(img)
-    if wire._wire_mode():
-        return list(wire.upload_p010_wire(*planes, device, packed))
-    return upload_planes(planes, device)
+    with stage("encode.upload", bytes=sum(p.nbytes for p in planes)):
+        if wire._wire_mode():
+            return list(wire.upload_p010_wire(*planes, device, packed))
+        return upload_planes(planes, device)
 
 
 def _join_scans(words_h: np.ndarray, blen_h: np.ndarray, layouts):
@@ -504,11 +517,17 @@ def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
                        metadata: GainMapMetadata, exif: bytes | None,
                        gm_ct: ColorTransfer, gm_cg: ColorGamut, pack) -> bytes:
     """The back half of a fused encode: one `pack` of both scans on the
-    device, one download, the host join of each scan and the container."""
-    words, blen = _pack_scans(scans, pack)
-    blen_h = blen.cpu().numpy()
-    base_scan, gm_scan = _join_scans(words.cpu().numpy().view(np.uint32),
-                                     blen_h, [lay for _, lay in scans])
+    device (``encode.dispatch``: the scan and pack launches, and on the
+    card the pack's ``encode.wait`` for its word count inside it), one
+    download (``encode.download``, with the `bytes` of the words and the
+    block lengths), the host join of each scan and the container."""
+    with stage("encode.dispatch", what="scans"):
+        words, blen = _pack_scans(scans, pack)
+    with stage("encode.download", bytes=words.nbytes + blen.nbytes):
+        blen_h = blen.cpu().numpy()
+        words_h = words.cpu().numpy().view(np.uint32)
+    base_scan, gm_scan = _join_scans(words_h, blen_h,
+                                     [lay for _, lay in scans])
     return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                                icc_cg, scale, gm_scan, metadata, exif, gm_ct,
                                gm_cg)
@@ -519,16 +538,18 @@ def _encode_api0(jr, img, quality: int, exif: bytes | None, block_buffers,
     """The API-0 encode of one HDR image on `jr.device`: `planes` (the
     input planes on the device), `block_buffers` (steps 1-4) and one
     `pack` of both scans on the device, download once, join both scans and
-    write the container.  API-0 SDR is always tone-mapped into P3
+    write the container.  Steps 1-3 queue their launches in an
+    ``encode.dispatch`` span.  API-0 SDR is always tone-mapped into P3
     (jpegr.cpp:1985-1987)."""
     cg, ct = ColorGamut(img.cg), ColorTransfer(img.ct)
     scale = _resolve_scale(jr, img)
     use_base_cg = _use_base_cg(ColorGamut.DISPLAY_P3, cg, jr.write_xmp)
-    scans = block_buffers(
-        *planes, cg=cg, ct=ct, scale=scale,
-        multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
-        quality=int(quality), map_quality=jr.map_compress_quality,
-        use_base_cg=use_base_cg, **kw)
+    with stage("encode.dispatch", what="pixels"):
+        scans = block_buffers(
+            *planes, cg=cg, ct=ct, scale=scale,
+            multichannel=jr.use_multi_channel_gainmap, gamma=jr.gamma,
+            quality=int(quality), map_quality=jr.map_compress_quality,
+            use_base_cg=use_base_cg, **kw)
     return _pack_and_assemble(
         jr, img.w, img.h, quality, scans, base_sampling,
         ColorGamut.DISPLAY_P3, scale, _onepass_metadata(jr, ct, use_base_cg),
@@ -551,13 +572,14 @@ def encode_api0_rgb_fused(jr, img, quality: int, exif: bytes | None, *,
     (``wire.upload_rgb_wire``), raw when they decline."""
     fmt = ImgFmt(img.fmt)
     packed = None
-    if wire._wire_mode():
-        plane = img.planes[0]
-        if fmt == ImgFmt.RGBAF16 and plane.dtype == np.float16:
-            plane = plane.view(np.uint16)
-        packed = wire.upload_rgb_wire(plane, fmt, jr.device)
-    if packed is None:
-        packed = upload_planes(img.planes[:1], jr.device)[0]
+    with stage("encode.upload", bytes=img.planes[0].nbytes):
+        if wire._wire_mode():
+            plane = img.planes[0]
+            if fmt == ImgFmt.RGBAF16 and plane.dtype == np.float16:
+                plane = plane.view(np.uint16)
+            packed = wire.upload_rgb_wire(plane, fmt, jr.device)
+        if packed is None:
+            packed = upload_planes(img.planes[:1], jr.device)[0]
     return _encode_api0(jr, img, quality, exif, _api0_rgb_block_buffers,
                         [packed], _SAMPLING_444, pack, fmt=fmt)
 
@@ -566,11 +588,12 @@ def encode_api0_yuv444_10_fused(jr, img, quality: int, exif: bytes | None,
                                 *, pack=pack_kernel.pack_scan) -> bytes:
     """JpegR.encode_api0 on YUV444_10 input (three u16 planes of 10-bit
     samples; 4:4:4 base)."""
-    return _encode_api0(
-        jr, img, quality, exif, _api0_yuv444_10_block_buffers,
-        upload_planes([np.asarray(p, np.uint16) for p in img.planes[:3]],
-                      jr.device), _SAMPLING_444, pack,
-        rng=ColorRange(img.range))
+    planes = [np.asarray(p, np.uint16) for p in img.planes[:3]]
+    with stage("encode.upload", bytes=sum(p.nbytes for p in planes)):
+        planes = upload_planes(planes, jr.device)
+    return _encode_api0(jr, img, quality, exif, _api0_yuv444_10_block_buffers,
+                        planes, _SAMPLING_444, pack,
+                        rng=ColorRange(img.range))
 
 
 # ---------------------------------------------------------------------------
@@ -1045,8 +1068,10 @@ def encode_api1_fused(jr, hdr, sdr, quality: int, exif: bytes | None, *,
                       pack=pack_kernel.pack_scan) -> bytes | None:
     """JpegR.encode_api1 on the device: raw HDR + raw SDR in, JPEG_R out,
     both presets with one `pack` launch; None when the format combination
-    needs the general path."""
-    out = api1_scans(jr, hdr, sdr, quality)
+    needs the general path.  The upload, the pixel stages and a two-pass
+    map's bound read share one ``encode.dispatch`` span."""
+    with stage("encode.dispatch", what="pixels"):
+        out = api1_scans(jr, hdr, sdr, quality)
     if out is None:
         return None
     scans, metadata, sampling, scale = out

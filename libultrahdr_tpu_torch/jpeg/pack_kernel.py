@@ -34,7 +34,8 @@ and returns (words (total,) int32 holding u32 bit patterns, blen (n,)
 int32): block b's MSB-first bitstream sits word-aligned at the exclusive
 prefix sum of ceil(blen/32), and blen has no restart-row pad.  The kernel
 codes every block once, in one launch, into room for CAP_WORDS words a
-block; its wrapper then reads the total word count (8 bytes, the one
+block; its wrapper then waits for the card (an ``encode.wait`` span,
+``utils.profiling``), reads the total word count (8 bytes, the one
 synchronisation) and returns that prefix of the room as ``words``.  It is a
 view: the whole room (n x CAP_WORDS words, about 145 MB for a default 4K
 request against about 10 MB of live words) stays allocated for as long as
@@ -63,6 +64,7 @@ import torch
 
 from .._buildlib import CudaLibrary, check_launch
 from ..errors import unsupported
+from ..utils import stage
 from . import device_entropy as de
 from .device_entropy import packed_luts
 
@@ -146,6 +148,9 @@ class _PackKernel:
         out = self.buffers(stream.shape[0], stream.device)
         self.launch(stream, dc_diff, is_luma, *out)
         scratch, blen, words = out
+        # the wait that the count's read would make, as a span of its own
+        with stage("encode.wait"):
+            torch.cuda.current_stream(stream.device).synchronize()
         return words[:int(scratch[1])], blen
 
     @staticmethod

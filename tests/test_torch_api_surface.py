@@ -504,8 +504,12 @@ def test_bridge_refusals_and_error_tuples_match_jax():
 
 def test_stage_timers():
     """stage() records only under torch.profiler, and stage_report() sums
-    what it recorded; the encodes, fused and pipelined, record no span
-    (spans cover the decode chain: tests/test_torch_trace.py)."""
+    what it recorded: a fused encode its chain of spans
+    (tests/test_torch_encode_trace.py), the pipelined encode each image's
+    upload, joins and container, and three ``decode.parse`` spans three
+    calls (the decode chain: tests/test_torch_trace.py)."""
+    def calls():
+        return {k: n for k, (n, _) in profiling.stage_report().items()}
     profiling.clear()
     with profiling.stage("decode.parse"):
         pass
@@ -515,10 +519,16 @@ def test_stage_timers():
         enc = port.UhdrEncoder(device="cpu")
         enc.set_raw_image(testing.photo_p010(W, H), port.ImgLabel.HDR)
         enc.encode()
+        assert calls() == {"encode": 1, "encode.upload": 1,
+                           "encode.dispatch": 2, "encode.download": 1,
+                           "encode.join": 2, "encode.assemble": 1}
+        profiling.clear()
         fused.encode_api0_p010_pipelined(
             port.JpegR(device="cpu"), [testing.photo_p010(W, H, seed=s)
                                        for s in (1, 2)])
-        assert profiling.stage_report() == {}
+        assert calls() == {"encode.upload": 2, "encode.join": 4,
+                           "encode.assemble": 2}
+        profiling.clear()
         for _ in range(3):
             with profiling.stage("decode.parse"):
                 pass

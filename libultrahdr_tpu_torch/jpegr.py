@@ -53,7 +53,9 @@ go up as one ``pack_coeff_wire_best`` blob (packed on the batch's host pool;
 a batch group keeps the wire kind of its first member, the others take the
 per-image route, as in the JAX package); with ``UHDR_TPU_WIRE_DOWN`` set,
 ``decode``'s fused output comes down through ``fetch_packed_1010102`` /
-``fetch_packed_f16``.
+``fetch_packed_f16``.  A host result of a card decode (the output, the gain
+map) comes down into pinned host memory (``_download``) while the live
+pinned results stay under ``PINNED_CAP_BYTES``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ import contextlib
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1171,16 +1174,80 @@ class JpegR:
         return outs
 
 
+# The most bytes that live download results may hold in pinned host memory
+# in one process; a download past it comes down into pageable memory, so a
+# caller that keeps many decoded images cannot pin the host without limit.
+PINNED_CAP_BYTES = 4 << 30
+
+
+class _PinnedResults:
+    """The pinned host bytes held by download results still alive: taken
+    before a pinned block is allocated, given back when the last array over
+    the block is collected (``weakref.finalize``)."""
+
+    def __init__(self):
+        # reentrant: the collector may run a finalizer (``give``) on a
+        # thread that is inside ``take``
+        self.lock = threading.RLock()
+        self.live = 0
+
+    def take(self, n: int) -> bool:
+        """Count `n` more bytes, unless they would pass the cap."""
+        with self.lock:
+            if self.live + n > PINNED_CAP_BYTES:
+                return False
+            self.live += n
+            return True
+
+    def give(self, n: int):
+        with self.lock:
+            self.live -= n
+
+
+_PINNED = _PinnedResults()
+
+
+def _pinned_copy(t: torch.Tensor) -> np.ndarray | None:
+    """A card tensor copied into a pinned block of PyTorch's caching host
+    allocator, as a numpy view of the block; the copy is queued on the
+    current stream and waited for by an event, so another client's later
+    work on the stream is not waited for.  None where the live pinned bytes
+    would pass the cap, or the block cannot be pinned."""
+    n = t.nbytes
+    if not _PINNED.take(n):
+        return None
+    try:
+        host = torch.empty_like(t, device="cpu", pin_memory=True)
+    except RuntimeError:
+        _PINNED.give(n)
+        return None
+    out = host.numpy()
+    # the array's base is the tensor object that every view of it keeps
+    # alive (not `host`): the bytes count until the last view is collected
+    weakref.finalize(out.base, _PINNED.give, n)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return out
+
+
 def _download(t: torch.Tensor, what: str) -> np.ndarray:
     """A tensor in host memory: on a card, the wait for the current
     stream's queued work (``decode.wait``, which the copy would wait for
     anyway), then the copy (``decode.download``, with the bytes it brings
-    to host memory, counted on the CPU too)."""
-    if t.device.type == "cuda":
+    to host memory, counted on the CPU too, and whether they came into
+    pinned memory: ``_pinned_copy``, else a pageable ``.cpu()``).  A pinned
+    result's array keeps its block; the block returns to the allocator's
+    cache when the caller drops the array."""
+    on_card = t.device.type == "cuda"
+    if on_card:
         with stage("decode.wait", what=what):
             torch.cuda.current_stream(t.device).synchronize()
-    with stage("decode.download", what=what, bytes=t.nbytes):
-        return t.cpu().numpy()
+    with stage("decode.download", what=what, bytes=t.nbytes) as attrs:
+        out = _pinned_copy(t) if on_card else None
+        attrs["pinned"] = out is not None
+        return t.cpu().numpy() if out is None else out
 
 
 def _output_image(packed, hdr_cg, output_ct, w: int, h: int) -> RawImage:

@@ -1803,7 +1803,7 @@ def main(argv=None) -> int:
     for cfg, kw in configs.items():
         data = outputs[cfg][0]
         primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-            port.JpegR(device="cuda")._parse_jpegr(data, outs[0])
+            port.JpegR(device="cuda")._parse_jpegr(data)
         base = fused.decode_coefficients(primary, pinfo)
         gmap = fused.decode_coefficients(gm_jpeg, gm_info)
         planes = {}
@@ -1827,7 +1827,7 @@ def main(argv=None) -> int:
             " bit-identical on the card and the CPU")
 
         # the decode's stage outputs on the card, the inputs of its apply
-        # (as JpegR._decode_fused_device computes them)
+        # (as JpegR._decode_fused computes them)
         scale_k = w // gm_info.width
         sdr_yuv, gm_u8 = fused._decode_sdr_and_gain(
             fused.upload_coeff_planes(base[0], dev), base[1],
@@ -2245,16 +2245,15 @@ def main(argv=None) -> int:
         if ct == CT.SRGB:
             continue
         t0 = time.perf_counter()
-        primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-            jr_g._parse_jpegr(data)
+        parts = jr_g._parse_jpegr(data)
         t1 = time.perf_counter()
-        jpeg_decoder.decode_coefficients(primary, pinfo)
-        jpeg_decoder.decode_coefficients(gm_jpeg, gm_info)
+        jpeg_decoder.decode_coefficients(parts.primary, parts.pinfo)
+        jpeg_decoder.decode_coefficients(parts.gm_jpeg, parts.gm_info)
         t2 = time.perf_counter()
         resize_ms = 0.0
+        gm_info = parts.gm_info
         if abs(w / h - gm_info.width / gm_info.height) / (w / h) > 0.01:
-            sdr, gain_u8 = jr_g._general_planes(primary, pinfo, gm_jpeg,
-                                                gm_info, sdr_cg)
+            sdr, gain_u8 = jr_g._general_planes(parts)
             host_map = gain_u8.cpu().numpy()
             t3 = time.perf_counter()
             resize_channels(host_map, w, h)
@@ -2272,11 +2271,10 @@ def main(argv=None) -> int:
     for (what, data, ct, _), img_out in zip(general, general_out):
         if ct == CT.SRGB:
             continue
-        primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-            jr_g._parse_jpegr(data)
-        sdr, gain_u8 = jr_g._general_planes(primary, pinfo, gm_jpeg, gm_info,
-                                            sdr_cg)
-        a = jr_g._apply_inputs(sdr, gain_u8, gm_cg, md, jpegr.FLT_MAX)
+        parts = jr_g._parse_jpegr(data)
+        sdr, gain_u8 = jr_g._general_planes(parts)
+        a = jr_g._apply_inputs(sdr, gain_u8, parts.gm_cg, parts.metadata,
+                               jpegr.FLT_MAX)
         gain = idw.idw_upsample(apply_ops._gain_to_float(a["gain"]),
                                 a["scale_k"], h, w).contiguous()
         rows = ak.meta_to_rows(a["meta"])
@@ -2815,9 +2813,9 @@ def main(argv=None) -> int:
     # file are entropy-decoded on the card
     agtm_launches = read_counts("AGTM file decode", {"apply_gainmap": 1,
                                                      "huffman": 2})
-    primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-        jr_a._parse_jpegr(agtm_file)
-    plan = jr_a._fused_plan(pinfo, gm_info, md, sdr_cg, gm_cg)
+    parts = jr_a._parse_jpegr(agtm_file)
+    primary, pinfo, gm_jpeg, gm_info, md = parts[:5]
+    plan = jpegr._plan_of(parts)
     if plan is None or (plan["scale_k"], plan["gm_channels"]) != (1, 3):
         raise AssertionError(f"AGTM file: not a fused scale-1 3-channel "
                              f"decode ({plan})")
@@ -4545,8 +4543,7 @@ def main(argv=None) -> int:
     taken["general path"] = ("general (use_fused=False), within "
                              "check_decoded_close of the CPU's fused decode")
     for gname, data in files23.items():
-        parsed = jr23._parse_jpegr(data)
-        plan = jr23._fused_plan(parsed[1], parsed[3], *parsed[4:])
+        plan = jpegr._plan_of(jr23._parse_jpegr(data))
         if plan is None:
             raise AssertionError(f"phase 23 {gname}: the fused route does "
                                  "not take the reference's file")

@@ -42,12 +42,11 @@ import os
 from . import editor
 from .errors import (UhdrError, UhdrErrorCode, invalid_operation,
                      invalid_param, unsupported)
-from .jpeg.decoder import parse_jpeg
 from .jpegr import (DEFAULT_ENC_PRESET, DEFAULT_GAINMAP_GAMMA,
                     DEFAULT_MAP_COMPRESS_QUALITY,
                     DEFAULT_MAP_DIMENSION_SCALE_FACTOR,
                     DEFAULT_USE_MULTI_CHANNEL_GAINMAP, FLT_MAX, JpegR,
-                    resolve_device)
+                    JpegRParts, resolve_device)
 from .jpegr import is_uhdr_image  # noqa: F401
 from .types import (Codec, ColorGamut, ColorRange, ColorTransfer,
                     CompressedImage, EncPreset, GainMapMetadata,
@@ -454,7 +453,7 @@ class UhdrDecoder(_Context):
         self._max_display_boost = FLT_MAX
         self._probed = False
         self._probe_error: UhdrError | None = None
-        self._info: dict = {}
+        self._parts: JpegRParts | None = None
         self._decoded: RawImage | None = None
         self._gainmap_img: RawImage | None = None
 
@@ -514,56 +513,47 @@ class UhdrDecoder(_Context):
             raise self._probe_error from e
 
     def _probe_impl(self):
-        jr = JpegR(device=self.device)
-        with stage("decode.parse", bytes=len(self._data)):
-            primary, gm = jr.extract_primary_and_gainmap(self._data)
-            if gm is None:
-                raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
-                                "did not find gain map image")
-            pinfo = parse_jpeg(primary, parse_only=True)
-            gm_info = parse_jpeg(gm, parse_only=True)
-            metadata = jr.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
-                                                 pinfo.exif)
-        self._info = {
-            "width": pinfo.width, "height": pinfo.height,
-            "gainmap_width": gm_info.width, "gainmap_height": gm_info.height,
-            "gainmap_components": gm_info.num_components,
-            "exif": pinfo.exif, "icc": pinfo.icc,
-            "base": primary, "gainmap": gm, "metadata": metadata,
-        }
+        """The request's one split and parse (``JpegR._parse_jpegr``),
+        kept for the getters and the decode."""
+        parts = JpegR._parse_jpegr(self._data)
+        if parts.gm_jpeg is None:
+            raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                            "did not find gain map image")
+        self._parts = parts
 
     def get_image_width(self) -> int:
-        return self._info.get("width", -1)
+        return self._parts.pinfo.width if self._parts else -1
 
     def get_image_height(self) -> int:
-        return self._info.get("height", -1)
+        return self._parts.pinfo.height if self._parts else -1
 
     def get_gainmap_width(self) -> int:
-        return self._info.get("gainmap_width", -1)
+        return self._parts.gm_info.width if self._parts else -1
 
     def get_gainmap_height(self) -> int:
-        return self._info.get("gainmap_height", -1)
+        return self._parts.gm_info.height if self._parts else -1
 
     def get_exif(self) -> bytes | None:
-        return self._info.get("exif")
+        return self._parts.pinfo.exif if self._parts else None
 
     def get_icc(self) -> bytes | None:
-        return self._info.get("icc")
+        return self._parts.pinfo.icc if self._parts else None
 
     def get_base_image(self) -> bytes | None:
-        return self._info.get("base")
+        return self._parts.primary if self._parts else None
 
     def get_gainmap_image(self) -> bytes | None:
-        return self._info.get("gainmap")
+        return self._parts.gm_jpeg if self._parts else None
 
     def get_gainmap_metadata(self) -> GainMapMetadata | None:
-        return self._info.get("metadata")
+        return self._parts.metadata if self._parts else None
 
     # -- decode ----------------------------------------------------------
 
     def decode(self) -> RawImage:
         """uhdr_decode (ultrahdr_api.cpp:1732-1814); a second call returns
-        the first result.
+        the first result.  The decode takes the probe's parts: a request
+        splits and parses the file once.
 
         UHDR_TPU_DECODE_ENGINE chooses the engine, as in the JAX package:
         ``auto`` (the default) and ``device``: ``JpegR.decode`` on the
@@ -583,7 +573,8 @@ class UhdrDecoder(_Context):
             return self._decoded
         with stage("decode", transfer=self._output_ct.name) as attrs:
             self.probe()
-            attrs.update(w=self._info["width"], h=self._info["height"])
+            parts = self._parts
+            attrs.update(w=parts.pinfo.width, h=parts.pinfo.height)
             self._sailed = True
             fmt, ct = self._output_fmt, self._output_ct
             if ((fmt == ImgFmt.RGBA1010102 and ct not in (ColorTransfer.HLG,
@@ -596,15 +587,11 @@ class UhdrDecoder(_Context):
             jr = JpegR(device=self.device)
             engine = os.environ.get("UHDR_TPU_DECODE_ENGINE", "auto").lower()
             if self._gpu and engine == "host" and ct != ColorTransfer.SRGB:
-                dest, _, gm_img = jr.decode_host(
-                    self._data, output_ct=ct,
-                    max_display_boost=self._max_display_boost,
-                    return_gainmap=True)
+                dest, _, gm_img = jr._decode_host_parsed(
+                    parts, ct, self._max_display_boost, return_gainmap=True)
             else:
-                dest, _, gm_img = jr.decode(
-                    self._data, output_ct=ct, output_fmt=fmt,
-                    max_display_boost=self._max_display_boost,
-                    return_gainmap=True,
+                dest, _, gm_img = jr._decode_parsed(
+                    parts, ct, self._max_display_boost, return_gainmap=True,
                     use_fused=self._gpu and engine != "general",
                     engine="host" if self._gpu and engine == "host"
                     else "device")

@@ -4,7 +4,10 @@ colour conversion.
 Port of ``libultrahdr_tpu/jpeg/decoder.py``:
 
 - copied unchanged (host code): ``parse_jpeg`` (segment walk up to SOS with
-  the APPn payload extraction of jpegdecoderhelper.cpp:32-44,119-139),
+  the APPn payload extraction of jpegdecoderhelper.cpp:32-44,119-139; a
+  progressive scan skipped with ``container.segments._skip_entropy``, the
+  full parse's SOF reject split out as ``require_sof`` for a caller that
+  parses with ``parse_only`` and rejects later),
   ``_validate``, ``require_qtable``, ``get_output_sampling_format`` and
   libjpeg's fixed-point YCbCr->RGB tables;
 - ported to PyTorch: ``_ycc_to_rgb``, the device twin of libjpeg's fancy
@@ -30,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..container.segments import _skip_entropy
 from ..errors import UhdrError, UhdrErrorCode, unsupported
 from ..ops.pixel import to_device
 from ..types import ImgFmt
@@ -79,21 +83,6 @@ class JpegInfo:
 
 def _u16(data: bytes, pos: int) -> int:
     return (data[pos] << 8) | data[pos + 1]
-
-
-def _skip_entropy(data: bytes, pos: int) -> int:
-    """Advance past entropy-coded data to the next true marker (skipping
-    stuffed 0xFF00 and RST markers)."""
-    n = len(data)
-    while True:
-        nxt = data.find(b"\xff", pos)
-        if nxt < 0 or nxt + 1 >= n:
-            return n
-        m = data[nxt + 1]
-        if m == 0x00 or 0xD0 <= m <= 0xD7 or m == 0xFF:
-            pos = nxt + 1 if m == 0xFF else nxt + 2
-            continue
-        return nxt
 
 
 def parse_jpeg(data: bytes, parse_only: bool = False) -> JpegInfo:
@@ -245,9 +234,16 @@ def parse_jpeg(data: bytes, parse_only: bool = False) -> JpegInfo:
             pos = end
             continue
         pos += 2 + seglen
-    if info.width == 0 and not parse_only:
-        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR, "no SOF found")
+    if not parse_only:
+        require_sof(info)
     return info
+
+
+def require_sof(info: JpegInfo):
+    """The full parse's one reject that ``parse_only`` defers: an image
+    whose segments hold no SOF (width 0)."""
+    if info.width == 0:
+        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR, "no SOF found")
 
 
 def _validate(info: JpegInfo):

@@ -66,6 +66,7 @@ import os
 import threading
 import time
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -78,10 +79,10 @@ from .editor import resize_channels
 from .errors import UhdrError, UhdrErrorCode, invalid_param, unsupported
 from .jpeg import native
 from .jpeg.huffman_kernel import HUFFMAN_KERNEL
-from .jpeg.decoder import (decode_coefficients, decode_to_planes,
+from .jpeg.decoder import (JpegInfo, decode_coefficients, decode_to_planes,
                            decode_to_rgb, decode_to_rgba,
                            get_output_sampling_format, parse_jpeg,
-                           planes_to_rgb)
+                           planes_to_rgb, require_sof)
 from .jpeg.encoder import JpegEncoder
 from .ops import apply as apply_ops
 from .ops import colors, effects_device, gainmap as gainmap_ops, idw, pixel
@@ -111,6 +112,78 @@ FLT_MAX = float(np.finfo(np.float32).max)
 _DECODE_OUTPUTS = (ColorTransfer.HLG, ColorTransfer.PQ, ColorTransfer.LINEAR)
 _SAMPLING_KEY = {ImgFmt.YUV444: "444", ImgFmt.YUV440: "440",
                  ImgFmt.YUV422: "422", ImgFmt.YUV420: "420"}
+
+
+class JpegRParts(NamedTuple):
+    """A JPEG_R file split and parsed (``JpegR._parse_jpegr``).  The map's
+    fields are None where the parse did not need the map, and every field
+    but `primary` where the file has no map."""
+    primary: bytes
+    pinfo: JpegInfo | None
+    gm_jpeg: bytes | None
+    gm_info: JpegInfo | None
+    metadata: GainMapMetadata | None
+    sdr_cg: ColorGamut | None
+    gm_cg: ColorGamut | None
+
+
+def _icc_gamut(info: JpegInfo) -> ColorGamut:
+    return icc_mod.read_icc_color_gamut(info.icc) if info.icc \
+        else ColorGamut.UNSPECIFIED
+
+
+def _check_parts(parts: JpegRParts, need_gainmap: bool = True):
+    """What a decode rejects of a parsed file beyond the parse, in
+    decodeJPEGR's order: the base's header faults and a base without SOF,
+    then a missing gain map, then a map without SOF."""
+    if parts.pinfo is None:
+        # no gain map, so nothing was parsed: the base's faults come first
+        parse_jpeg(parts.primary)
+        raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
+                        "no gain map image present")
+    require_sof(parts.pinfo)
+    if need_gainmap:
+        require_sof(parts.gm_info)
+
+
+def _fused_route(pinfo, gm_info, output_ct) -> tuple[str, int] | str:
+    """The streams the fused route and the host engine take, as the JAX
+    package's ``_decode_fused_device`` and ``decode_host`` decide: (the
+    base's sampling key, the map's integer scale), or the host engine's
+    reason for refusing the stream, in its order.  A base sampling that
+    ``get_output_sampling_format`` cannot name raises its UhdrError."""
+    if ColorTransfer(output_ct) not in _DECODE_OUTPUTS:
+        return "decode_host targets HDR outputs"
+    if pinfo.progressive or gm_info.progressive:
+        return "progressive stream: use the general path"
+    if pinfo.num_components != 3 or gm_info.num_components not in (1, 3):
+        return "unsupported component layout"
+    base_fmt = get_output_sampling_format(pinfo)
+    if base_fmt not in _SAMPLING_KEY:
+        return f"unsupported base sampling {base_fmt}"
+    w, h = pinfo.width, pinfo.height
+    mw, mh = gm_info.width, gm_info.height
+    if mw == 0 or mh == 0 or w % mw or h % mh or w // mw != h // mh:
+        return "fractional map scale: use the general path"
+    if gm_info.num_components == 3 and any(
+            c.h != 1 or c.v != 1 for c in gm_info.components):
+        return "subsampled multichannel gain map"
+    return _SAMPLING_KEY[base_fmt], w // mw
+
+
+def _plan_of(parts: JpegRParts, output_ct=ColorTransfer.HLG) -> dict | None:
+    return JpegR._fused_plan(parts.pinfo, parts.gm_info, parts.metadata,
+                             parts.sdr_cg, parts.gm_cg, output_ct)
+
+
+def _default_gamuts(sdr_cg, gm_cg) -> tuple[ColorGamut, ColorGamut]:
+    """(SDR gamut, HDR gamut) of a decode: an unspecified base is BT.709,
+    an unspecified map takes the base's."""
+    s_cg = ColorGamut(sdr_cg)
+    if s_cg == ColorGamut.UNSPECIFIED:
+        s_cg = ColorGamut.BT709
+    h_cg = ColorGamut(gm_cg)
+    return s_cg, s_cg if h_cg == ColorGamut.UNSPECIFIED else h_cg
 
 
 class _DeviceDecodeMicrobatcher:
@@ -548,13 +621,11 @@ class JpegR:
 
     def get_info(self, data: bytes) -> dict:
         """getJPEGRInfo (jpegr.cpp:1332-1345): dims + marker blobs per image."""
-        primary, gm = self.extract_primary_and_gainmap(data)
-        pinfo = parse_jpeg(primary, parse_only=True)
-        out = {"width": pinfo.width, "height": pinfo.height,
-               "primary": pinfo, "gainmap": None}
-        if gm is not None:
-            out["gainmap"] = parse_jpeg(gm, parse_only=True)
-        return out
+        parts = self._parse_jpegr(data, need_gainmap=False)
+        return {"width": parts.pinfo.width, "height": parts.pinfo.height,
+                "primary": parts.pinfo,
+                "gainmap": None if parts.gm_jpeg is None
+                else parse_jpeg(parts.gm_jpeg, parse_only=True)}
 
     @staticmethod
     def parse_gainmap_metadata(iso: bytes | None, xmp_blob: bytes | None,
@@ -574,28 +645,28 @@ class JpegR:
             return xmp.parse_xmp_metadata(xmp_blob, exif)
         raise invalid_param("received no valid buffer to parse gainmap metadata")
 
-    def _parse_jpegr(self, data: bytes, need_gainmap: bool = True):
-        """Split and parse a JPEG_R file: (primary, pinfo, gm_jpeg, gm_info,
-        metadata, sdr_cg, gm_cg).  Without `need_gainmap` (an SRGB output
-        that does not return the map) the gain map is neither demanded nor
-        parsed, and gm_info, metadata and gm_cg are None.  A
-        ``decode.parse`` span holds it."""
+    @staticmethod
+    def _parse_jpegr(data: bytes, *, need_gainmap: bool = True) -> JpegRParts:
+        """The split of a JPEG_R file and the parse of its parts, once a
+        request (a ``decode.parse`` span): the headers with ``parse_only``,
+        the metadata, the ICC gamuts.  A file without a gain map comes back
+        unparsed and an image without SOF with width 0, for each caller to
+        reject with its own error (the probe; ``_check_parts``).  Without
+        `need_gainmap` the gain map is neither demanded nor parsed."""
         with stage("decode.parse", bytes=len(data)):
-            primary, gm_jpeg = self.extract_primary_and_gainmap(data)
-            pinfo = parse_jpeg(primary)
-            sdr_cg = icc_mod.read_icc_color_gamut(pinfo.icc) if pinfo.icc \
-                else ColorGamut.UNSPECIFIED
+            primary, gm_jpeg = JpegR.extract_primary_and_gainmap(data)
+            if need_gainmap and gm_jpeg is None:
+                return JpegRParts(primary, None, None, None, None, None, None)
+            pinfo = parse_jpeg(primary, parse_only=True)
+            sdr_cg = _icc_gamut(pinfo)
             if not need_gainmap:
-                return primary, pinfo, gm_jpeg, None, None, sdr_cg, None
-            if gm_jpeg is None:
-                raise UhdrError(UhdrErrorCode.UHDR_CODEC_ERROR,
-                                "no gain map image present")
-            gm_info = parse_jpeg(gm_jpeg)
-            metadata = self.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
-                                                   pinfo.exif)
-            gm_cg = icc_mod.read_icc_color_gamut(gm_info.icc) \
-                if gm_info.icc else ColorGamut.UNSPECIFIED
-            return primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg
+                return JpegRParts(primary, pinfo, gm_jpeg, None, None, sdr_cg,
+                                  None)
+            gm_info = parse_jpeg(gm_jpeg, parse_only=True)
+            metadata = JpegR.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
+                                                    pinfo.exif)
+            return JpegRParts(primary, pinfo, gm_jpeg, gm_info, metadata,
+                              sdr_cg, _icc_gamut(gm_info))
 
     def decode(self, data: bytes, output_ct=ColorTransfer.HLG,
                output_fmt=ImgFmt.RGBA1010102,
@@ -616,104 +687,101 @@ class JpegR:
         is accepted for the same signature and not read."""
         del output_fmt
         output_ct = ColorTransfer(output_ct)
-        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
-            self._parse_jpegr(data, need_gainmap=(
-                output_ct != ColorTransfer.SRGB or return_gainmap))
+        parts = self._parse_jpegr(data, need_gainmap=(
+            output_ct != ColorTransfer.SRGB or return_gainmap))
+        return self._decode_parsed(parts, output_ct, max_display_boost,
+                                   return_gainmap, use_fused, engine)
+
+    def _decode_parsed(self, parts: JpegRParts, output_ct,
+                       max_display_boost, return_gainmap, use_fused,
+                       engine):
+        """``decode`` of a parsed file (``_parse_jpegr``, or the probe's
+        parts in ``UhdrDecoder``)."""
+        _check_parts(parts, output_ct != ColorTransfer.SRGB or return_gainmap)
         if output_ct == ColorTransfer.SRGB:
-            dest = RawImage(ImgFmt.RGBA8888, sdr_cg, ColorTransfer.SRGB,
-                            ColorRange.FULL, pinfo.width, pinfo.height,
-                            [decode_to_rgba(primary, pinfo, engine=engine,
+            dest = RawImage(ImgFmt.RGBA8888, parts.sdr_cg, ColorTransfer.SRGB,
+                            ColorRange.FULL, parts.pinfo.width,
+                            parts.pinfo.height,
+                            [decode_to_rgba(parts.primary, parts.pinfo,
+                                            engine=engine,
                                             device=self.device)])
-            gainmap_img = self._decode_gainmap_image(gm_jpeg, gm_info,
-                                                     engine) \
+            gainmap_img = self._decode_gainmap_image(parts, engine) \
                 if return_gainmap else None
-            return dest, metadata, gainmap_img
-        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
-                                output_ct) if use_fused else None
+            return dest, parts.metadata, gainmap_img
+        plan = _plan_of(parts, output_ct) if use_fused else None
         if plan is not None:
-            dest, gainmap_img = self._try_decode_fused(
-                plan, primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-                max_display_boost, gm_cg)
+            dest, gm_u8 = self._decode_fused(parts, plan, output_ct,
+                                             max_display_boost, download=True)
         else:
-            dest, gainmap_img = self._decode_general(
-                primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-                max_display_boost, sdr_cg, gm_cg)
-        return dest, metadata, gainmap_img if return_gainmap else None
+            # the general path (the JAX package's decode after its fused
+            # route declines)
+            sdr, gm_u8 = self._general_planes(parts)
+            dest = self.apply_gainmap(sdr, gm_u8, parts.gm_cg, parts.metadata,
+                                      output_ct, None, max_display_boost)
+        gainmap_img = _gainmap_image(gm_u8, parts.gm_cg)
+        return dest, parts.metadata, gainmap_img if return_gainmap else None
 
-    def _decode_general(self, primary, pinfo, gm_jpeg, gm_info, metadata,
-                        output_ct, max_display_boost, sdr_cg, gm_cg):
-        """The general decode path on ``self.device`` (the JAX package's
-        ``decode`` after its fused route declines): ``_general_planes``,
-        then ``apply_gainmap``.  Returns (dest RawImage, gainmap RawImage)
-        in host memory."""
-        sdr, gain_u8 = self._general_planes(primary, pinfo, gm_jpeg, gm_info,
-                                            sdr_cg)
-        dest = self.apply_gainmap(sdr, gain_u8, gm_cg, metadata, output_ct,
-                                  None, max_display_boost)
-        return dest, _gainmap_image(gain_u8, gm_cg)
-
-    def _general_planes(self, primary, pinfo, gm_jpeg, gm_info, sdr_cg):
+    def _general_planes(self, parts: JpegRParts):
         """Both images decoded on ``self.device`` (baseline or progressive):
         (the base as an SDR RawImage of device planes, the (C, mh, mw) u8
         gain map: a YUV400 map's luma, else the RGB decode of the RGB-coded
         map, DECODE_STREAM)."""
-        planes, base_fmt = decode_to_planes(primary, pinfo,
+        pinfo, gm_info = parts.pinfo, parts.gm_info
+        planes, base_fmt = decode_to_planes(parts.primary, pinfo,
                                             device=self.device)
-        gm_planes, gm_fmt = decode_to_planes(gm_jpeg, gm_info,
+        gm_planes, gm_fmt = decode_to_planes(parts.gm_jpeg, gm_info,
                                              device=self.device)
         gain_u8 = planes_to_rgb(gm_planes, gm_fmt, gm_info.height,
                                 gm_info.width)
-        return RawImage(base_fmt, sdr_cg, ColorTransfer.SRGB, ColorRange.FULL,
-                        pinfo.width, pinfo.height, planes), gain_u8
+        return RawImage(base_fmt, parts.sdr_cg, ColorTransfer.SRGB,
+                        ColorRange.FULL, pinfo.width, pinfo.height,
+                        planes), gain_u8
 
-    def _decode_gainmap_image(self, gm_jpeg: bytes, gm_info,
+    def _decode_gainmap_image(self, parts: JpegRParts,
                               engine: str = "device") -> RawImage:
         """The gain-map image decoded on its own (uhdr_get_decoded_gainmap
         on the SRGB path, ultrahdr_api.cpp:1815-1840), on ``self.device``
         or, for engine "host", by the host engine (as the JAX package
         does)."""
-        gm_cg = icc_mod.read_icc_color_gamut(gm_info.icc) if gm_info.icc \
-            else ColorGamut.UNSPECIFIED
+        gm_jpeg, gm_info = parts.gm_jpeg, parts.gm_info
         if engine == "host":
             packed = decode_to_rgba(gm_jpeg, gm_info, engine="host")
             rgb = packed.view(np.uint8).reshape(*packed.shape, 4)
             gm = rgb[..., :1] if gm_info.num_components == 1 else rgb[..., :3]
             return _gainmap_image(torch.from_numpy(gm).permute(2, 0, 1),
-                                  gm_cg)
+                                  parts.gm_cg)
         return _gainmap_image(
-            decode_to_rgb(gm_jpeg, gm_info, device=self.device), gm_cg)
+            decode_to_rgb(gm_jpeg, gm_info, device=self.device), parts.gm_cg)
 
-    def _try_decode_fused(self, plan: dict, primary, pinfo, gm_jpeg,
-                          gm_info, metadata, output_ct, max_display_boost,
-                          gm_cg, card: bool = True):
+    def _decode_fused(self, parts: JpegRParts, plan: dict, output_ct,
+                      max_display_boost, download: bool, card: bool = True):
         """The fused decode of a stream that `plan` (``_fused_plan``) takes:
-        (dest RawImage, gainmap RawImage) in host memory, the output
-        downloaded raw or, with UHDR_TPU_WIRE_DOWN set, through the download
-        wire.  Once the output's download has waited for the card, the
-        status words of the card's entropy decodes are read; a nonzero one
-        discards the result, and the request is decoded again with every
-        scan on the host (`card` False), counted in
+        (packed output, gain map u8) on the device, or with `download` the
+        output as a host RawImage (through the download wire with
+        UHDR_TPU_WIRE_DOWN set).  The status words of the card's entropy
+        decodes are read then: after the output's download, which has
+        waited for the card, or else once the card has run them.  A nonzero
+        one discards the result, and the request is decoded again with
+        every scan on the host (`card` False), counted in
         ``HUFFMAN_KERNEL.host_redecodes``."""
-        base, gm, status = self._fused_coefficients(
-            primary, pinfo, gm_jpeg, gm_info, card)
-        packed_dev, gm_dev = self._decode_planned(
-            plan, base, gm, metadata, output_ct, max_display_boost)
-        if wire.down_wire_enabled():
-            fetch = fused.fetch_packed_f16 \
-                if ColorTransfer(output_ct) == ColorTransfer.LINEAR \
-                else fused.fetch_packed_1010102
-            packed_dev = fetch(packed_dev, h=pinfo.height, w=pinfo.width)
-        dest = _output_image(packed_dev, plan["hdr_cg"], output_ct,
-                             pinfo.width, pinfo.height)
+        base, gm, status = self._fused_coefficients(parts, card)
+        packed, gm_u8 = self._decode_planned(
+            plan, base, gm, parts.metadata, output_ct, max_display_boost)
+        if download:
+            w, h = plan["w"], plan["h"]
+            if wire.down_wire_enabled():
+                fetch = fused.fetch_packed_f16 \
+                    if ColorTransfer(output_ct) == ColorTransfer.LINEAR \
+                    else fused.fetch_packed_1010102
+                packed = fetch(packed, h=h, w=w)
+            packed = _output_image(packed, plan["hdr_cg"], output_ct, w, h)
         if status is not None and status.faulty():
             HUFFMAN_KERNEL.host_redecodes += 1
-            return self._try_decode_fused(
-                plan, primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-                max_display_boost, gm_cg, card=False)
-        return dest, _gainmap_image(gm_dev, gm_cg)
+            return self._decode_fused(parts, plan, output_ct,
+                                      max_display_boost, download, card=False)
+        return packed, gm_u8
 
-    def _fused_coefficients(self, primary, pinfo, gm_jpeg, gm_info,
-                            card: bool = True):
+    def _fused_coefficients(self, parts: JpegRParts, card: bool = True):
         """Both images' entropy decodes for ``_decode_planned``: (base, gain
         map, ``fused.ScanStatus`` or None).  With `card`, an image that
         ``fused.card_scan_plan`` takes is decoded on ``self.device``
@@ -725,7 +793,8 @@ class JpegR:
         status = None
         out = []
         for i, (image, jpeg, info) in enumerate((
-                ("base", primary, pinfo), ("map", gm_jpeg, gm_info))):
+                ("base", parts.primary, parts.pinfo),
+                ("map", parts.gm_jpeg, parts.gm_info))):
             plan = fused.card_scan_plan(info, device) if card else None
             if plan is None:
                 out.append(fused.decode_coefficients(jpeg, info, image=image))
@@ -744,38 +813,20 @@ class JpegR:
         """The fused route's parameters of a parsed stream, in the order of
         the batch signature (w, h, sampling key, scale_k, gm_channels,
         s_cg, h_cg, use_base_cg), or None for a stream the fused route does
-        not take, as the JAX package's ``_decode_fused_device`` declines
-        it: an output other than HLG/PQ/LINEAR, a progressive image, a base
-        of other than 3 components or a map of other than 1 or 3, a base
-        sampled other than 4:4:4, 4:2:2, 4:2:0 or 4:4:0, a subsampled
-        3-channel map, or a map whose size does not divide the image by one
-        integer factor."""
-        if ColorTransfer(output_ct) not in _DECODE_OUTPUTS:
-            return None
-        if pinfo.progressive or gm_info.progressive:
-            return None
-        if pinfo.num_components != 3 or gm_info.num_components not in (1, 3):
-            return None
+        not take (``_fused_route``), as the JAX package's
+        ``_decode_fused_device`` declines it."""
         try:
-            key = _SAMPLING_KEY.get(get_output_sampling_format(pinfo))
+            route = _fused_route(pinfo, gm_info, output_ct)
         except UhdrError:
             return None
-        if key is None or (gm_info.num_components == 3 and any(
-                c.h != 1 or c.v != 1 for c in gm_info.components)):
+        if isinstance(route, str):
             return None
-        w, h = pinfo.width, pinfo.height
-        mw, mh = gm_info.width, gm_info.height
-        if mw == 0 or mh == 0 or w % mw or h % mh or w // mw != h // mh:
-            return None
-        s_cg = ColorGamut(sdr_cg)
-        if s_cg == ColorGamut.UNSPECIFIED:
-            s_cg = ColorGamut.BT709
-        h_cg = ColorGamut(gm_cg)
-        if h_cg == ColorGamut.UNSPECIFIED:
-            h_cg = s_cg
-        return {"w": w, "h": h, "sampling_key": key, "scale_k": w // mw,
-                "gm_channels": gm_info.num_components, "sdr_cg": s_cg,
-                "hdr_cg": h_cg, "use_base_cg": bool(metadata.use_base_cg)}
+        key, scale_k = route
+        s_cg, h_cg = _default_gamuts(sdr_cg, gm_cg)
+        return {"w": pinfo.width, "h": pinfo.height, "sampling_key": key,
+                "scale_k": scale_k, "gm_channels": gm_info.num_components,
+                "sdr_cg": s_cg, "hdr_cg": h_cg,
+                "use_base_cg": bool(metadata.use_base_cg)}
 
     def _decode_planned(self, plan: dict, base, gm, metadata, output_ct,
                         max_display_boost, device=None, coeff_wire=None):
@@ -810,33 +861,6 @@ class JpegR:
             base_c, base[1], gm_c, gm[1],
             apply_ops.metadata_to_arrays(metadata), np.float32(weight),
             out_ct=output_ct, **plan)
-
-    def _decode_fused_device(self, primary, pinfo, gm_jpeg, gm_info,
-                             metadata, output_ct, max_display_boost, sdr_cg,
-                             gm_cg, card: bool = True):
-        """Device half of the fused decode on ``self.device``; returns
-        (packed output, gain map u8, hdr gamut) with the tensors left on the
-        device.  A stream the fused route does not take raises
-        ``unsupported``: the device-resident decode has no general path, as
-        in the JAX package.  With scans decoded on the card, their status
-        words are read once the card has run the entropy decodes (the
-        stages queued after them run on); a nonzero one sends the request
-        to the host's entropy decode, as ``_try_decode_fused`` does."""
-        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg,
-                                output_ct)
-        if plan is None:
-            raise unsupported(
-                "stream shape not supported by the fused decode path")
-        base, gm, status = self._fused_coefficients(
-            primary, pinfo, gm_jpeg, gm_info, card)
-        packed, gm_u8 = self._decode_planned(
-            plan, base, gm, metadata, output_ct, max_display_boost)
-        if status is not None and status.faulty():
-            HUFFMAN_KERNEL.host_redecodes += 1
-            return self._decode_fused_device(
-                primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-                max_display_boost, sdr_cg, gm_cg, card=False)
-        return packed, gm_u8, plan["hdr_cg"]
 
     # ------------------------------------------------------------------
     # the general path's apply, and the host engine
@@ -874,12 +898,7 @@ class JpegR:
         any other is upsampled with the float-factor IDW and stays float at
         scale 1 (the reference samples the map in float and never
         re-quantizes, gainmapmath.cpp:871-921)."""
-        sdr_cg = ColorGamut(sdr.cg)
-        if sdr_cg == ColorGamut.UNSPECIFIED:
-            sdr_cg = ColorGamut.BT709
-        hdr_cg = ColorGamut(gm_cg)
-        if hdr_cg == ColorGamut.UNSPECIFIED:
-            hdr_cg = sdr_cg
+        sdr_cg, hdr_cg = _default_gamuts(sdr.cg, gm_cg)
         gain = pixel.plane_tensor(gain_u8, self.device)
         mh, mw = gain.shape[1], gain.shape[2]
         primary_ar = sdr.w / sdr.h
@@ -917,40 +936,28 @@ class JpegR:
 
         Returns (RawImage dest, GainMapMetadata), with the gain-map image
         as a third item when `return_gainmap`.  Raises ``unsupported`` for
-        exactly the streams the JAX package's raises for: an SRGB output, a
-        progressive image, other component counts, a base sampled other
-        than 4:4:4, 4:2:2, 4:2:0 or 4:4:0, a fractional map scale and a
-        subsampled 3-channel map.  Built with the JAX package's flags, it
-        gives the JAX package's bytes on the same host (``jpeg/native.py``);
-        against the device decode it holds the JAX package's own gate,
-        >= 55 dB a channel (its float IDCT is not libjpeg's islow)."""
+        exactly the streams the JAX package's raises for (``_fused_route``).
+        Built with the JAX package's flags, it gives the JAX package's bytes
+        on the same host (``jpeg/native.py``); against the device decode it
+        holds the JAX package's own gate, >= 55 dB a channel (its float
+        IDCT is not libjpeg's islow)."""
         del output_fmt
         output_ct = ColorTransfer(output_ct)
-        if output_ct not in _DECODE_OUTPUTS:
-            raise unsupported("decode_host targets HDR outputs")
-        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
-            self._parse_jpegr(data)
-        if pinfo.progressive or gm_info.progressive:
-            raise unsupported("progressive stream: use the general path")
-        if pinfo.num_components != 3 or gm_info.num_components not in (1, 3):
-            raise unsupported("unsupported component layout")
-        base_fmt = get_output_sampling_format(pinfo)
-        hf, vf = {ImgFmt.YUV444: (1, 1), ImgFmt.YUV422: (2, 1),
-                  ImgFmt.YUV420: (2, 2), ImgFmt.YUV440: (1, 2)}.get(
-                      base_fmt, (0, 0))
-        if hf == 0:
-            raise unsupported(f"unsupported base sampling {base_fmt}")
+        return self._decode_host_parsed(self._parse_jpegr(data), output_ct,
+                                        max_display_boost, return_gainmap)
+
+    def _decode_host_parsed(self, parts: JpegRParts, output_ct,
+                            max_display_boost, return_gainmap):
+        """``decode_host`` of a parsed file."""
+        _check_parts(parts)
+        route = _fused_route(parts.pinfo, parts.gm_info, output_ct)
+        if isinstance(route, str):
+            raise unsupported(route)
+        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = parts
+        hf, vf = fused.DECODE_SAMPLING[route[0]]
+        s_cg, h_cg = _default_gamuts(sdr_cg, gm_cg)
         w, h = pinfo.width, pinfo.height
         mw, mh = gm_info.width, gm_info.height
-        if mw == 0 or mh == 0 or w % mw or h % mh or w // mw != h // mh:
-            raise unsupported("fractional map scale: use the general path")
-        if gm_info.num_components == 3 and any(
-                c.h != 1 or c.v != 1 for c in gm_info.components):
-            raise unsupported("subsampled multichannel gain map")
-        s_cg = ColorGamut.BT709 if sdr_cg == ColorGamut.UNSPECIFIED \
-            else ColorGamut(sdr_cg)
-        h_cg = s_cg if ColorGamut(gm_cg) == ColorGamut.UNSPECIFIED \
-            else ColorGamut(gm_cg)
 
         base_coeffs, base_qts, _ = decode_coefficients(primary, pinfo,
                                                        image="base")
@@ -1046,12 +1053,17 @@ class JpegR:
         output_ct = ColorTransfer(output_ct)
         if output_ct == ColorTransfer.SRGB:
             raise unsupported("device-resident decode targets HDR outputs")
-        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
-            self._parse_jpegr(data)
-        packed, _, _ = self._decode_fused_device(
-            primary, pinfo, gm_jpeg, gm_info, metadata, output_ct,
-            max_display_boost, sdr_cg, gm_cg)
-        return packed, metadata
+        parts = self._parse_jpegr(data)
+        _check_parts(parts)
+        plan = _plan_of(parts, output_ct)
+        if plan is None:
+            # the device-resident decode has no general path, as in the JAX
+            # package
+            raise unsupported(
+                "stream shape not supported by the fused decode path")
+        packed, _ = self._decode_fused(parts, plan, output_ct,
+                                       max_display_boost, download=False)
+        return packed, parts.metadata
 
     def decode_to_device_batch(self, streams, output_ct=ColorTransfer.HLG,
                                max_display_boost: float = FLT_MAX,
@@ -1093,8 +1105,8 @@ class JpegR:
                 entries.append(e)
                 if e is None:
                     continue
-                sig = sig or tuple(e["plan"].values())
-                if tuple(e["plan"].values()) == sig:
+                sig = sig or tuple(e[1].values())
+                if tuple(e[1].values()) == sig:
                     # decoded while the next streams are parsed
                     group[pool.submit(_host_decode, e, cuda)] = i
             # a group of one takes the per-image route: its staged
@@ -1116,16 +1128,14 @@ class JpegR:
                                                         max_display_boost)
         return results
 
-    def _batch_entry(self, data: bytes) -> dict | None:
-        """A stream parsed for the batch, or None when the fused route does
-        not take it (the per-image route then raises for it)."""
-        primary, pinfo, gm_jpeg, gm_info, metadata, sdr_cg, gm_cg = \
-            self._parse_jpegr(data)
-        plan = self._fused_plan(pinfo, gm_info, metadata, sdr_cg, gm_cg)
-        if plan is None:
-            return None
-        return {"primary": primary, "pinfo": pinfo, "gm_jpeg": gm_jpeg,
-                "gm_info": gm_info, "metadata": metadata, "plan": plan}
+    def _batch_entry(self, data: bytes):
+        """A stream parsed for the batch: (its parts, its plan), or None
+        when the fused route does not take it (the per-image route then
+        raises for it)."""
+        parts = self._parse_jpegr(data)
+        _check_parts(parts)
+        plan = _plan_of(parts)
+        return None if plan is None else (parts, plan)
 
     def _decode_group(self, group: dict, entries, output_ct,
                       max_display_boost, devices) -> dict:
@@ -1152,7 +1162,7 @@ class JpegR:
             base, gm, coeff_wire = f.result()
             if coeff_wire is not None and coeff_wire[1] != kind:
                 continue
-            e = entries[i]
+            parts, plan = entries[i]
             dev = devices[i]
             ctx = contextlib.nullcontext()
             if dev.type == "cuda":
@@ -1161,9 +1171,9 @@ class JpegR:
                 used[dev] += 1
             with ctx:
                 packed, _ = self._decode_planned(
-                    e["plan"], base, gm, e["metadata"], output_ct,
+                    plan, base, gm, parts.metadata, output_ct,
                     max_display_boost, dev, coeff_wire)
-            outs[i] = (packed, e["metadata"])
+            outs[i] = (packed, parts.metadata)
         for dev in used:
             cur = torch.cuda.current_stream(dev)
             for s in fused.side_streams(dev):
@@ -1276,7 +1286,7 @@ def _gainmap_image(gm_u8: torch.Tensor, gm_cg) -> RawImage:
                     [plane[..., 0] if c == 1 else plane])
 
 
-def _host_decode(e: dict, stage: bool):
+def _host_decode(e: tuple, stage: bool):
     """The host Huffman decode of a batch entry's two images: ((coefficient
     planes, quant tables) of the base, the same of the gain map, the
     coefficient wire or None).  With UHDR_TPU_WIRE set the planes are
@@ -1286,8 +1296,9 @@ def _host_decode(e: dict, stage: bool):
     not block)."""
     out = []
     packing = wire.coeff_wire_enabled()
-    for image, jpeg, info in (("base", e["primary"], e["pinfo"]),
-                              ("map", e["gm_jpeg"], e["gm_info"])):
+    parts = e[0]
+    for image, jpeg, info in (("base", parts.primary, parts.pinfo),
+                              ("map", parts.gm_jpeg, parts.gm_info)):
         coeffs, qts, _ = fused.decode_coefficients(jpeg, info, image=image)
         if stage and not packing:
             coeffs = [pixel.pinned(c) for c in coeffs]
@@ -1301,12 +1312,6 @@ def is_uhdr_image(data: bytes) -> bool:
     """is_uhdr_image (ultrahdr_api.cpp:1359-1385): the probe succeeds and a
     gain map with metadata is present.  Host parsing only."""
     try:
-        primary, gm = JpegR.extract_primary_and_gainmap(data)
-        if gm is None:
-            return False
-        pinfo = parse_jpeg(primary, parse_only=True)
-        gm_info = parse_jpeg(gm, parse_only=True)
-        JpegR.parse_gainmap_metadata(gm_info.iso, gm_info.xmp, pinfo.exif)
-        return True
+        return JpegR._parse_jpegr(data).gm_jpeg is not None
     except Exception:
         return False

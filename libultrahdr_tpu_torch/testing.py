@@ -866,21 +866,14 @@ def progressive_jpegr(data: bytes, quality: int = 85,
     ``JpegR.encode_api4`` (host work only).  Imports PIL when called."""
     from PIL import Image
 
-    from .container import icc
-    from .jpeg.decoder import parse_jpeg
     from .jpegr import JpegR
     from .types import CompressedImage
-    primary, gm_jpeg = JpegR.extract_primary_and_gainmap(data)
-    pinfo, gm_info = parse_jpeg(primary), parse_jpeg(gm_jpeg)
-    metadata = JpegR.parse_gainmap_metadata(gm_info.iso, gm_info.xmp,
-                                            pinfo.exif)
+    primary, _, gm_jpeg, _, metadata, cg, _ = JpegR._parse_jpegr(data)
     base = Image.open(io.BytesIO(primary))
     buf = io.BytesIO()
     base.convert("RGB").save(buf, "JPEG", progressive=True, quality=quality,
                              subsampling=subsampling,
                              icc_profile=base.info.get("icc_profile"))
-    cg = icc.read_icc_color_gamut(pinfo.icc) if pinfo.icc \
-        else ColorGamut.UNSPECIFIED
     return JpegR(device="cpu").encode_api4(
         CompressedImage(buf.getvalue(), cg),
         CompressedImage(without_app_segments(gm_jpeg, keep_icc=True)),

@@ -11,7 +11,7 @@ in the two configurations of ``chip_smoke.py`` (benchmark: map scale 4,
 1. requests: ``UhdrDecoder(device="cuda").decode()`` per file and output
    (HLG, PQ, LINEAR), host clock with a synchronize on each side, median and
    quartiles of REPS requests after 2 warm-ups;
-2. stages: the steps of ``JpegR._decode_fused_device`` / ``_try_decode_fused``
+2. stages: the steps of ``JpegR._decode_fused`` (after ``_parse_jpegr``)
    run one by one with a synchronize and a host clock at each boundary
    (split + parse + metadata, host Huffman decode, upload, base IDCT, map
    IDCT + YCbCr->RGB, IDW, apply kernel, download), median of REPS;
@@ -105,7 +105,7 @@ def staged(data: bytes, out: str, dev: torch.device):
 
     jr = port.JpegR(device=dev)
     primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-        jr._parse_jpegr(data, ct)
+        jr._parse_jpegr(data)
     mark("split + parse + metadata")
     bc, bq, _ = fused.decode_coefficients(primary, pinfo)
     gc, gq, _ = fused.decode_coefficients(gm_jpeg, gm_info)

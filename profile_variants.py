@@ -226,7 +226,7 @@ def inputs(dev: torch.device):
 
     jr = port.JpegR(device=dev)
     primary, pinfo, gm_jpeg, gm_info, md, sdr_cg, gm_cg = \
-        jr._parse_jpegr(data, port.ColorTransfer.HLG)
+        jr._parse_jpegr(data)
     base = fused.decode_coefficients(primary, pinfo)
     gmap = fused.decode_coefficients(gm_jpeg, gm_info)
     scale_k = W // gm_info.width

@@ -352,3 +352,158 @@ def test_unsupported_decode_shapes_raise():
                 codes.append(int(e.value.code))
             assert codes == [int(
                 port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE)] * 2
+
+
+# ---- one parse a request -----------------------------------------------
+
+CODEC = port.UhdrErrorCode.UHDR_CODEC_ERROR
+NO_METADATA = (port.UhdrErrorCode.UHDR_CODEC_INVALID_PARAM,
+               "received no valid buffer to parse gainmap metadata")
+NO_SOF = (CODEC, "no SOF found")
+NO_MAP_PROBE = (CODEC, "did not find gain map image")
+# what probe(), UhdrDecoder.decode() (HLG) and JpegR.decode() raise for each
+# malformed file: (code, detail), or None where the call succeeds.  The
+# probe parses headers only, so a missing SOF is the decode's reject.
+MALFORMED = {
+    "no gain map": (NO_MAP_PROBE, NO_MAP_PROBE,
+                    (CODEC, "no gain map image present")),
+    "arithmetic-coded JPEG, no gain map": (
+        NO_MAP_PROBE, NO_MAP_PROBE,
+        (port.UhdrErrorCode.UHDR_CODEC_UNSUPPORTED_FEATURE,
+         "unsupported SOF marker 0xC9")),
+    "base without SOF": (None, NO_SOF, NO_SOF),
+    "map without SOF": (None, NO_SOF, NO_SOF),
+    "ISO block with a wrong namespace": (NO_METADATA,) * 3,
+    "map without XMP or ISO": (NO_METADATA,) * 3,
+}
+
+
+def _without(jpeg: bytes, marker: int, prefix: bytes = b"") -> bytes:
+    """`jpeg` without its first header segment `marker` whose payload
+    starts with `prefix`."""
+    for m, start, end in testing._segments(jpeg):
+        if m == marker and jpeg[start:end].startswith(prefix):
+            return jpeg[:start - 4] + jpeg[end:]
+    raise ValueError(f"no segment 0x{marker:02X}")
+
+
+@functools.lru_cache(maxsize=None)
+def _malformed() -> dict:
+    img = testing.photo_p010(64, 48)
+    primary, gm = port.JpegR.extract_primary_and_gainmap(
+        port.JpegR(device="cpu").encode_api0(img, 90))
+    # an ISO-only file, its map's ISO block renamed by one byte
+    iso_primary, iso_gm = port.JpegR.extract_primary_and_gainmap(
+        port.JpegR(device="cpu", write_xmp=False).encode_api0(img, 90))
+    ns = b"urn:iso:std:iso:ts:21496:-1\x00"
+    (at,) = [start for m, start, end in testing._segments(iso_gm)
+             if m == 0xE2 and iso_gm[start:end].startswith(ns)]
+    sof = primary.index(b"\xff\xc0")
+    return {
+        "no gain map": primary,
+        "arithmetic-coded JPEG, no gain map":
+            primary[:sof] + b"\xff\xc9" + primary[sof + 2:],
+        "base without SOF": _without(primary, 0xC0) + gm,
+        "map without SOF": primary + _without(gm, 0xC0),
+        "ISO block with a wrong namespace":
+            iso_primary + iso_gm[:at + 4] + b"X" + iso_gm[at + 5:],
+        "map without XMP or ISO":
+            primary + testing.without_app_segments(gm, keep_icc=True),
+    }
+
+
+def _raised(call):
+    try:
+        call()
+    except port.UhdrError as e:
+        return e.code, e.detail
+    return None
+
+
+@pytest.mark.parametrize("case", list(MALFORMED))
+def test_malformed_files_keep_their_errors(case):
+    """Each malformed file raises from the same call the code and detail it
+    raised when the probe and the decode parsed the file apart."""
+    data = _malformed()[case]
+    dec = port.UhdrDecoder(device="cpu")
+    dec.set_image(data)
+    probed = _raised(dec.probe)
+    dec.set_out_color_transfer(port.ColorTransfer.HLG)
+    dec.set_out_img_format(port.ImgFmt.RGBA1010102)
+    assert (probed, _raised(dec.decode),
+            _raised(lambda: port.JpegR(device="cpu").decode(data))) == \
+        MALFORMED[case]
+
+
+@pytest.mark.parametrize("route", ["fused", "general", "SRGB", "host"])
+def test_a_decode_splits_and_parses_once(route, monkeypatch):
+    """``UhdrDecoder.decode`` splits the file once and parses each JPEG
+    once on every route: the probe's parts go to the decode."""
+    from libultrahdr_tpu_torch import jpegr
+    from libultrahdr_tpu_torch.container import segments
+    calls = {"split": 0, "parse": 0}
+
+    def counted(what, fn):
+        def call(*a, **kw):
+            calls[what] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(segments, "scan_jpeg_images",
+                        counted("split", segments.scan_jpeg_images))
+    parse = counted("parse", port_decoder.parse_jpeg)
+    monkeypatch.setattr(port_decoder, "parse_jpeg", parse)
+    monkeypatch.setattr(jpegr, "parse_jpeg", parse)
+    dec = port.UhdrDecoder(device="cpu")
+    dec.set_image(_files("benchmark")["port"])
+    dec.set_out_color_transfer(port.ColorTransfer.HLG)
+    dec.set_out_img_format(port.ImgFmt.RGBA1010102)
+    if route == "general":
+        dec.enable_gpu_acceleration(False)
+    elif route == "SRGB":
+        dec.set_out_color_transfer(port.ColorTransfer.SRGB)
+        dec.set_out_img_format(port.ImgFmt.RGBA8888)
+    elif route == "host":
+        monkeypatch.setenv("UHDR_TPU_DECODE_ENGINE", "host")
+    img = dec.decode()
+    assert (img.w, img.h) == (W, H)
+    assert calls == {"split": 1, "parse": 2}
+
+
+def test_faulty_card_scan_decodes_the_request_again_on_the_host(monkeypatch):
+    """A set status word of the card's entropy decode discards the result:
+    the request is decoded again with every scan on the host, once, on the
+    host-result route and on the device-resident one, and gives the host
+    route's output.  The card decode is stood in for by the host's."""
+    from libultrahdr_tpu_torch.jpeg.huffman_kernel import HUFFMAN_KERNEL
+    data = _files("benchmark")["port"]
+    jr = port.JpegR(device="cpu")
+    want, _, want_gm = jr.decode(data, return_gainmap=True)
+    want_dev, _ = jr.decode_to_device(data, microbatch=False)
+    on_card = []
+
+    def card_decode(jpeg, info, plan, device, word, image):
+        on_card.append(image)
+        return port_fused.decode_coefficients(jpeg, info, image=image)
+
+    class Faulty:
+        def __init__(self, device):
+            self.words = torch.zeros(2, dtype=torch.int32)
+
+        def queue_read(self):
+            pass
+
+        def faulty(self):
+            return True
+
+    monkeypatch.setattr(port_fused, "card_scan_plan", lambda info, dev: 1)
+    monkeypatch.setattr(port_fused, "decode_coefficients_card", card_decode)
+    monkeypatch.setattr(port_fused, "ScanStatus", Faulty)
+    redecodes = HUFFMAN_KERNEL.host_redecodes
+    got, _, got_gm = jr.decode(data, return_gainmap=True)
+    got_dev, _ = jr.decode_to_device(data, microbatch=False)
+    assert HUFFMAN_KERNEL.host_redecodes == redecodes + 2
+    assert on_card == ["base", "map"] * 2
+    assert np.array_equal(got.planes[0], want.planes[0])
+    assert np.array_equal(got_gm.planes[0], want_gm.planes[0])
+    assert torch.equal(got_dev, want_dev)

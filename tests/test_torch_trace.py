@@ -59,7 +59,7 @@ def test_decode_records_the_chain(jpegr, empty):
         dec = decode(jpegr)
     got = profiling.spans()
     assert collections.Counter(s.name for s in got) == {
-        "decode": 1, "decode.parse": 2, "decode.huffman": 2,
+        "decode": 1, "decode.parse": 1, "decode.huffman": 2,
         "decode.upload": 2, "decode.dispatch_wait": 1, "decode.dispatch": 1,
         "decode.download": 2}
     by_id = {s.span_id: s for s in got}
@@ -84,10 +84,10 @@ def test_decode_records_the_chain(jpegr, empty):
             if s.name == "decode.download"}
     assert down == {"output": W * H * 4, "map": gm.planes[0].nbytes}
     parse = [s.attrs["bytes"] for s in got if s.name == "decode.parse"]
-    assert parse == [len(jpegr)] * 2
+    assert parse == [len(jpegr)]
     rep = profiling.stage_report()
     assert {k: v[0] for k, v in rep.items()} == {
-        "decode": 1, "decode.parse": 2, "decode.huffman": 2,
+        "decode": 1, "decode.parse": 1, "decode.huffman": 2,
         "decode.upload": 2, "decode.dispatch_wait": 1, "decode.dispatch": 1,
         "decode.download": 2}
     assert rep["decode"][1] == pytest.approx(root.seconds)
@@ -117,7 +117,7 @@ def test_threads_open_their_own_requests(jpegr, empty):
         if s.parent_id is not None:
             assert by_id[s.parent_id].thread == s.thread
             assert by_id[s.parent_id].request_id == s.request_id
-    assert len(got) == 4 * 11
+    assert len(got) == 4 * 10
 
 
 def test_span_on_the_profilers_clock(empty):

@@ -25,13 +25,14 @@ the general path's encoder), and every scan and plane it built is then
 held against the plain composition on its own inputs:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the seven CUDA kernel libraries (csrc/pack_kernel.cu,
+2. build the eight CUDA kernel libraries (csrc/pack_kernel.cu,
    csrc/block_pack_kernel.cu, csrc/apply_kernel.cu, the scan kernel
    csrc/dct_kernel.cu, the wire kernels csrc/wire_kernel.cu, the stitch
-   csrc/stitch_kernel.cu and the entropy decode csrc/huffman_kernel.cu,
-   nvcc, sm_90a) and the host C++ (csrc/host/) from the checkout's
-   sources, the compilers started together; print each kernel's ptxas
-   line (registers, static shared memory, spills);
+   csrc/stitch_kernel.cu, the entropy decode csrc/huffman_kernel.cu and
+   the restart-row join csrc/join_kernel.cu, nvcc, sm_90a) and the host
+   C++ (csrc/host/) from the checkout's sources, the compilers started
+   together; print each kernel's ptxas line (registers, static shared
+   memory, spills);
 3. hold the pack kernel, the block pack and the tile pack against their
    plain PyTorch versions on seeded 4:2:0, 4:4:4 and 4:0:0 coefficient
    planes with the pack's edge cases (block counts that are and are not a
@@ -308,6 +309,21 @@ held against the plain composition on its own inputs:
    through the fused route: every output and map == the host route's, the
    re-decodes counted.  ``--only-huffman`` runs phase 1's card line and this
    phase alone;
+25. the restart-row join of the fused encodes on the card
+   (``jpeg/join_kernel``): (a) the kernel, run twice, against its plain
+   version on the card's tensors and ``native.join_blocks`` on
+   ``testing.join_edge_cases``; (b) a request of each benchmark encode cell
+   (``android_12mp.encode_c1``, 12 MP; ``libdefault_8k.encode_api0_c1``,
+   8192x4320) through the harness's ``UhdrEncoder``: one join launch, the
+   file's scans == the kernel's == the plain version's ==
+   ``native.join_blocks`` on the request's pack output (the pack's whole
+   room, as the route hands it over); the kernel's time alone (CUDA
+   events) beside its bound (the live words and block lengths read, the
+   scans written), the wrapper's, the plain version's and the host join's
+   (host clock).  The join is in the launch counts of every path: once a
+   fused encode, never on the pipelined, K-batch and sharded routes,
+   which join on the host.  ``--only-join`` runs phase 1's card line, the
+   kernel's build (its ptxas lines) and this phase alone;
 11. (printed last) one JSON line with the kernel records (launches on the paths,
    the apply kernel's HLG/PQ and LINEAR branches apart, as the TPU
    kernel's two ``pallas_call`` lines, max abs error against the plain
@@ -765,6 +781,123 @@ def huffman_phase(card: str) -> dict:
             "redecodes": redecodes}
 
 
+def join_phase(card: str) -> dict:
+    """Phase 25 (the module docstring); returns the kernel's record row and
+    its launches on the encode cells' path."""
+    import numpy as np
+    import torch
+    from libultrahdr_tpu_torch import fused, testing
+    from libultrahdr_tpu_torch.jpeg import join_kernel as jk
+    from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
+    from uhdrbench import harness
+    t25 = time.perf_counter()
+    dev = torch.device("cuda")
+    kern = jk.JOIN_KERNEL
+
+    def scans(out, sizes) -> list[bytes]:
+        sizes = sizes.tolist()
+        return jk.scan_bytes(out[:sum(sizes)].cpu().numpy(), sizes)
+
+    # (a) the edge cases: kernel == kernel again == plain on the card's
+    # tensors == the host join
+    cases = testing.join_edge_cases()
+    for name, w, b, parts in cases:
+        wd = torch.from_numpy(w.view(np.int32)).to(dev)
+        bd = torch.from_numpy(b.astype(np.int32)).to(dev)
+        before = kern.launches
+        got = scans(*jk.join_scans(wd, bd, parts))
+        again = scans(*jk.join_scans(wd, bd, parts))
+        if kern.launches != before + 2:
+            raise AssertionError(f"phase 25a {name}: {kern.launches - before}"
+                                 " launches for two joins")
+        if not got == again == scans(*jk.join_scans_plain(wd, bd, parts)) \
+                == testing.host_join(w, b, parts):
+            raise AssertionError(f"phase 25a {name}: kernel, kernel again, "
+                                 "plain and native.join_blocks differ")
+    log(f"phase 25a join kernel == the same run again == plain (on the "
+        f"card's tensors) == native.join_blocks on {len(cases)} edge cases "
+        f"({', '.join(n for n, *_ in cases)}) | {card}")
+
+    # (b) a request of each encode cell through UhdrEncoder (the harness's
+    # Port): one join launch; the file's scans, the kernel's, the plain
+    # version's and the host join's on the same pack output equal; the
+    # kernel's time alone beside its bound, the wrapper's, the plain
+    # version's and the host join's
+    rows, path_launches = {}, 0
+    real = fused._pack_scans
+    for cell in ("android_12mp.encode_c1", "libdefault_8k.encode_api0_c1"):
+        c, cfg = harness.load_cell(cell)
+        item = harness.make_inputs(dict(c, pool=1), cfg, 2 ** 31 + 25,
+                                   "cuda")[0]
+        port = harness.Port("cuda")
+        seen = []
+
+        def keep(scans_, pack):
+            out = real(scans_, pack)
+            seen.append((out, [lay for _, lay in scans_]))
+            return out
+        fused._pack_scans = keep
+        try:
+            port.encode(cfg, item)                 # warm-up
+            seen.clear()
+            before = kern.launches
+            data = port.encode(cfg, item)
+            launches = kern.launches - before
+        finally:
+            fused._pack_scans = real
+        if launches != 1:
+            raise AssertionError(f"phase 25b {cell}: {launches} join "
+                                 "launches in a request")
+        path_launches += launches
+        ((room, blen), layouts), = seen
+        parts = [(lay.mcus_h * lay.bpr, lay.bpr) for lay in layouts]
+        total = int(((blen.long() + 31) >> 5).sum())
+        words_h = room[:total].cpu().numpy().view(np.uint32)
+        blen_h = blen.cpu().numpy()
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = testing.host_join(words_h, blen_h, parts)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        primary, gm_jpeg, _ = testing.read_jpegr(data)
+        if [testing.scan_data(primary), testing.scan_data(gm_jpeg)] != want:
+            raise AssertionError(f"phase 25b {cell}: the file's scans != "
+                                 "native.join_blocks on its pack output")
+        if scans(*kern(room, blen, parts)) != want or scans(
+                *jk.join_scans_plain(room[:total], blen, parts)) != want:
+            raise AssertionError(f"phase 25b {cell}: kernel or plain != "
+                                 "native.join_blocks")
+        if room.numel() != blen.numel() * pk.CAP_WORDS:
+            raise AssertionError(f"phase 25b {cell}: the join did not read "
+                                 "the pack's room")
+        bufs = kern.buffers(room, parts)
+        alone = [testing.launch_ms(
+            lambda: kern.launch(room, blen, parts, *bufs)) for _ in range(2)]
+        wrapper = cuda_ms(lambda: kern(room, blen, parts), 20)
+        plain_ms = cuda_ms(
+            lambda: jk.join_scans_plain(room[:total], blen, parts), 3)
+        out_bytes = sum(len(x) for x in want)
+        moved = 4 * total + nbytes(blen) + out_bytes
+        b_ms, b_by = bound(moved, 0)
+        rows[cell] = dict(ms=wrapper, kernel_ms=sum(alone) / 2,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          host_ms=sorted(host_ms)[1])
+        log(f"phase 25b {cell}: {blen.numel()} blocks in {len(parts)} "
+            f"scans, {sum(n // b for n, b in parts)} rows, {total} live "
+            f"words, {out_bytes} bytes joined ({[len(x) for x in want]}); "
+            f"one join launch; file == kernel == plain == native.join_blocks;"
+            f" kernel alone {alone[0]:.4f}/{alone[1]:.4f} ms, wrapper "
+            f"{wrapper:.4f} ms, plain {plain_ms:.3f} ms (CUDA events), host "
+            f"join {', '.join(f'{t:.1f}' for t in host_ms)} ms (host "
+            f"clock); bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB: "
+            f"live words and lengths read, scans written once; "
+            f"{100 * b_ms / (sum(alone) / 2):.1f}% of the kernel alone) | "
+            f"{card}")
+    log(f"phase 25: {time.perf_counter() - t25:.1f} s | {card}")
+    return {"row": rows["libdefault_8k.encode_api0_c1"], "rows": rows,
+            "path_launches": path_launches}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -775,6 +908,9 @@ def main(argv=None) -> int:
                          "kernels beside the current ones")
     ap.add_argument("--only-huffman", action="store_true",
                     help="phase 1's card line and phase 24 alone")
+    ap.add_argument("--only-join", action="store_true",
+                    help="phase 1's card line, the join kernel's build "
+                         "(ptxas) and phase 25 alone")
     ap.add_argument("--huffman-split", nargs="+", type=pathlib.Path,
                     metavar="JPEG", help="print the entropy decode's "
                     "device ms a kernel for each JPEG as one JSON line "
@@ -806,6 +942,15 @@ def main(argv=None) -> int:
         p24 = huffman_phase(card)
         log(json.dumps({k: v for k, v in p24.items() if k != "rows"}))
         return 0
+    if args.only_join:
+        sys.path.insert(0, str(HERE))
+        from libultrahdr_tpu_torch.jpeg import join_kernel
+        join_kernel.JOIN_LIB.build()
+        log(f"join kernel: {join_kernel.JOIN_LIB.build_seconds:.1f} s | "
+            + " | ".join(ptxas_report(join_kernel.JOIN_LIB.build_log)))
+        p25 = join_phase(card)
+        log(json.dumps(p25["rows"]))
+        return 0
 
     sys.path.insert(0, str(HERE))
     import libultrahdr_tpu_torch as port
@@ -816,6 +961,7 @@ def main(argv=None) -> int:
     from libultrahdr_tpu_torch import fused, jpegr, testing
     from libultrahdr_tpu_torch.jpeg import dct, device_entropy, native
     from libultrahdr_tpu_torch.jpeg import huffman_kernel
+    from libultrahdr_tpu_torch.jpeg import join_kernel
     from libultrahdr_tpu_torch.jpeg import decoder as jpeg_decoder
     from libultrahdr_tpu_torch.jpeg import pack_kernel as pk
     from libultrahdr_tpu_torch.ops import apply as apply_ops
@@ -833,9 +979,10 @@ def main(argv=None) -> int:
                "wire_unslice": wk.UNSLICE_KERNEL,
                "down_pack": wk.DOWN_PACK_KERNEL,
                "stitch": stk.STITCH_KERNEL,
-               "huffman": huffman_kernel.HUFFMAN_KERNEL}
-    # every scan-kernel launch read on a path, for the records
-    dct_launches = [0]
+               "huffman": huffman_kernel.HUFFMAN_KERNEL,
+               "join": join_kernel.JOIN_KERNEL}
+    # every scan-kernel and join launch read on a path, for the records
+    dct_launches, join_launches = [0], [0]
     # every scan the paths build (dct.scan_inputs, one kernel launch a
     # scan) and every plane of the general path's encoder (forward_plane),
     # with what the kernel gave the request, held against the plain
@@ -882,16 +1029,22 @@ def main(argv=None) -> int:
         """The launch counts after driving `path`; raises unless they are
         `want` (kernels not named there: 0; the scan kernel, unless named,
         twice a pack launch: every fused encode packs its base and gain-map
-        scans, built one launch each, in one launch).  "apply_linear"
+        scans, built one launch each, in one launch; the join, unless
+        named, once a pack launch: every fused encode joins both scans in
+        one call, where the pipelined, K-batch and sharded encodes join on
+        the host and name "join": 0).  "apply_linear"
         counts the apply kernel's LINEAR launches among its
         "apply_gainmap" ones.  Then every scan and plane the path built
         must equal its plain version."""
         got = {k: kern.launches for k, kern in counted.items()}
         got["apply_linear"] = ak.APPLY_KERNEL.linear_launches
         dct_launches[0] += got["forward_dct"]
+        join_launches[0] += got["join"]
         expect = {k: want.get(k, 0) for k in got}
         if "forward_dct" not in want:
             expect["forward_dct"] = 2 * expect["pack_scan"]
+        if "join" not in want:
+            expect["join"] = expect["pack_scan"]
         if got != expect:
             raise AssertionError(f"{path}: kernel launches {got}, expected "
                                  f"{expect}")
@@ -904,7 +1057,8 @@ def main(argv=None) -> int:
     libs = (("pack", pk.PACK_LIB), ("block pack", pk.BLOCK_PACK_LIB),
             ("apply", ak.APPLY_LIB), ("forward DCT", dct.DCT_LIB),
             ("wire", wk.WIRE_LIB), ("stitch", stk.STITCH_LIB),
-            ("entropy decode", huffman_kernel.HUFFMAN_LIB))
+            ("entropy decode", huffman_kernel.HUFFMAN_LIB),
+            ("join", join_kernel.JOIN_LIB))
     from libultrahdr_tpu_torch.capi import build as capi_build
 
     def build_capi():
@@ -922,7 +1076,7 @@ def main(argv=None) -> int:
             f.result()
         capi_shim, capi_test_exe, capi_roundtrip_exe = capi_fut.result()
         capi_inproc_shim = inproc_fut.result()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the seven "
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s for the eight "
         "kernel libraries (nvcc sm_90a), the host C++ and the C ABI shim "
         "(two variants) with its C programs, in parallel")
     for kname, lib in libs:
@@ -1992,7 +2146,7 @@ def main(argv=None) -> int:
             runs.append((time.perf_counter() - t0) * 1e3)
             pipe_launches += read_counts(
                 f"pipelined encode {cfg} run {run}",
-                {"pack_scan": n_img})["pack_scan"]
+                {"pack_scan": n_img, "join": 0})["pack_scan"]
             if run and outs_p != piped[cfg]:
                 raise AssertionError(f"pipelined encode {cfg}: the two runs "
                                      "differ")
@@ -3024,7 +3178,7 @@ def main(argv=None) -> int:
             # per shard: its base and gain-map scans, one pack
             sharded_pack_launches += read_counts(
                 f"sharded JPEG encode {cfg} ({mesh_name} mesh)",
-                {"pack_scan": 4})["pack_scan"]
+                {"pack_scan": 4, "join": 0})["pack_scan"]
             # each shard's pack launch against the plain pack on the same
             # stream inputs (the shard's rows through the same stages)
             for s in range(4):
@@ -3409,7 +3563,7 @@ def main(argv=None) -> int:
     wire_encodes = {}
     zero_counts()
     wire.RODE.clear()
-    n_pack = n_unslice = 0
+    n_pack = n_unslice = n_join = 0
     for cfg, kw in configs.items():
         for v in ("auto", "vw", "2d5", "1d7"):
             before = dict(wire.RODE)
@@ -3422,6 +3576,7 @@ def main(argv=None) -> int:
                                      "!= the raw route's")
             wire_encodes["P010", cfg, v] = took
             n_pack += 1
+            n_join += 1
             log(f"phase 18b P010 {cfg} UHDR_TPU_WIRE={v}: rode {took}, file "
                 f"== phase 4's raw file byte for byte")
         for rname in ("RGBA1010102 HLG", "RGBAF16 LINEAR"):
@@ -3435,6 +3590,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{rname} {cfg}: wire file != the raw "
                                      "route's")
             n_pack += 1
+            n_join += 1
             log(f"phase 18b {rname} {cfg} UHDR_TPU_WIRE=auto: rode {took}, "
                 f"file == phase 4's raw file byte for byte")
         for pname, preset in presets.items():
@@ -3453,6 +3609,7 @@ def main(argv=None) -> int:
                                          f"UHDR_TPU_WIRE_API1={v}: file != "
                                          "the raw route's")
                 n_pack += 1
+                n_join += 1
                 log(f"phase 18b API-1 {pname} {cfg} UHDR_TPU_WIRE_API1={v}:"
                     f" rode {took}, file == phase 4b's raw file byte for "
                     "byte")
@@ -3487,7 +3644,7 @@ def main(argv=None) -> int:
                 f"phase 7's | {card}")
     n_unslice = expected_unslice()
     wire_enc_launches = read_counts("wire encodes", {
-        "pack_scan": n_pack, "wire_unslice": n_unslice})
+        "pack_scan": n_pack, "wire_unslice": n_unslice, "join": n_join})
     log(f"phase 18b wires taken: {rode()}")
 
     # 18c: 4K decodes over the coefficient and download wires
@@ -4193,7 +4350,7 @@ def main(argv=None) -> int:
         """The launches a row must read, from its config and calls."""
         n, cfg = row["calls"], row["config"]
         if cfg.startswith("enc"):
-            return {"pack_scan": n, "forward_dct": 2 * n}
+            return {"pack_scan": n, "forward_dct": 2 * n, "join": n}
         if cfg.endswith("(host)") or "-> srgb" in cfg:
             return {}
         return {"apply_gainmap": n, "apply_linear": n * ("-> linear" in cfg)}
@@ -4319,7 +4476,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"phase 22 {what}: files {bad} != the "
                                  "single encodes")
         add(kb_launches, read_counts(
-            f"phase 22 {what}", {"pack_scan": len(imgs),
+            f"phase 22 {what}", {"pack_scan": len(imgs), "join": 0,
                                  "wire_unslice": expected_unslice(),
                                  "stitch": n_batches}))
         if not time_it:
@@ -4762,6 +4919,9 @@ def main(argv=None) -> int:
     # ---- phase 24: the entropy decode on the card ---------------------------
     p24 = huffman_phase(card)
 
+    # ---- phase 25: the restart-row join on the card -------------------------
+    p25 = join_phase(card)
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "libultrahdr_tpu."))
               or m == "libultrahdr_tpu"]
@@ -4887,7 +5047,13 @@ def main(argv=None) -> int:
         record("huffman", "huffman_kernel.cu",
                "jpeg/native.py:565 (decode_scan, host C++)",
                p23_launches["huffman"] + p24["path_launches"], p24["row"],
-               0)]}))
+               0),
+        # the JAX package joins a scan's rows on the host, no pallas_call
+        # (jpeg/native.py:501 join_blocks); the row is the 8K encode's
+        record("join", "join_kernel.cu",
+               "jpeg/native.py:501 (join_blocks, host C++)",
+               join_launches[0] + tools_launches["join"]
+               + p25["path_launches"], p25["row"], 0)]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from phase 1 "
         "to the records")
     log(json.dumps({"ok": True, "device": {

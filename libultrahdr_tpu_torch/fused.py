@@ -14,7 +14,7 @@ cost more than the bytes they save (``PERF.md``).
 
 **Encode** (the JAX ``_fused_api0_p010``, ``_fused_api0_rgb`` and
 ``_fused_api0_yuv444_10``): raw HDR planes in, JPEG_R bytes out.  On the
-device, in eager PyTorch plus the hand-written pack kernel:
+device, in eager PyTorch plus the hand-written pack and join kernels:
 
 1. unpack: P010, RGBA1010102, RGBAF16 (sanitized) or YUV444_10
                                         (ops/pixel.unpack_*)
@@ -27,7 +27,10 @@ device, in eager PyTorch plus the hand-written pack kernel:
    differences, one launch a scan into one set of pack inputs
                                         (_pack_scans, jpeg/dct.scan_inputs)
 5. Huffman symbols, bit packing and compaction of BOTH scans in one launch
-                                        (jpeg/pack_kernel.pack_scan)
+                                        (jpeg/pack_kernel.pack_scan_queued)
+6. the restart-row join of both scans in one pass of launches: bit-level
+   concatenation, the rows' 1-bit pads, byte stuffing, RST markers
+                                        (jpeg/join_kernel.join_scans)
 
 **API-1** (the JAX ``_fused_api1`` and ``_fused_api1_gm``): raw HDR (P010,
 RGBA1010102, RGBAF16) and raw SDR (YUV420, RGBA8888) planes in.  The SDR
@@ -40,16 +43,17 @@ the two-pass map: float gains and their per-channel min/max on the device,
 the 2C floats read to the host (the request's one synchronisation before
 the pack), the bounds resolved there (user boosts, the XMP channel merge),
 then the map quantised on the device.  Either way both scans go through
-ONE pack launch.  The JAX package packs the base before the bound
-resolution; the port resolves the bounds first so that one launch packs
-both scans; the bytes are the same.
+ONE pack launch and one join.  The JAX package packs the base before the
+bound resolution; the port resolves the bounds first so that one launch
+packs both scans; the bytes are the same.
 
-The host then downloads the words and block lengths once, joins each scan's
-restart rows (native.join_blocks, host C++), writes the JPEG headers
-(jpeg/encoder.assemble_jpeg) and the MPF/ISO container
-(container/jpegr_container.append_gainmap).  Both JPEGs carry one restart
-interval per MCU row, as the JAX package's fused encode does.  The JAX
-package packs the two scans apart; the joined bytes are the same.
+The host then waits for the card once, downloads the joined scans alone,
+writes the JPEG headers (jpeg/encoder.assemble_jpeg) and the MPF/ISO
+container (container/jpegr_container.append_gainmap).  Both JPEGs carry
+one restart interval per MCU row, as the JAX package's fused encode does.
+The JAX package packs the two scans apart and joins them on the host
+(native.join_blocks, C++, which the port's pipelined, K-batch and sharded
+encodes keep); the bytes are the same.
 
 **Decode** (the JAX ``_decode_device_core``): the host splits and parses the
 file.  A scan without restart markers (``card_scan_plan``: baseline, no
@@ -104,7 +108,8 @@ import torch
 from .container import icc as icc_mod
 from .container import jpegr_container
 from .errors import invalid_param
-from .jpeg import dct, device_entropy, huffman_kernel, native, pack_kernel
+from .jpeg import (dct, device_entropy, huffman_kernel, join_kernel, native,
+                   pack_kernel)
 from .jpeg.dct import inverse_plane
 from .jpeg.decoder import _ycc_to_rgb, quant_tables, scan_format
 from .jpeg.decoder import decode_coefficients  # noqa: F401  (the decode's)
@@ -274,10 +279,11 @@ def _api0_yuv444_10_block_buffers(y, u, v, *, cg: ColorGamut,
 
 
 def _pack_scans(scans, pack):
-    """Both scans' pack inputs back to back, packed in ONE launch, so the
-    host drains a request with one download of words and one of block
-    lengths; `pack` is the entropy stage (the dispatcher, or its plain
-    version to compare against).  scans: [(dct.ScanPlanes, layout), ...]
+    """Both scans' pack inputs back to back, packed in ONE launch, so that
+    one join (or, on the pipelined routes, one download of words and one of
+    block lengths) drains a request; `pack` is the entropy stage (a
+    dispatcher, or the plain version to compare against).  scans:
+    [(dct.ScanPlanes, layout), ...]
     (``dct.scan_inputs``: on the card one launch a scan writes each into
     one set of inputs) or [(coefficient planes, layout), ...] (the stream
     glue on given coefficients, then a concatenation)."""
@@ -292,12 +298,12 @@ def fetch_blocks_multi(words_dev, parts) -> list[bytes]:
     (the JAX name: there the device's buffer, here its download).
 
     parts: [(block_len_bits u16, bpr), ...] in packing order.  Returns the
-    joined scan bytes per part, each join an ``encode.join`` span with the
-    `bytes` it writes."""
+    joined scan bytes per part, each join (``native.join_blocks``) an
+    ``encode.join`` span with `engine` "host" and the `bytes` it writes."""
     out, off = [], 0
     for bl, bpr in parts:
         need = device_entropy.total_words(bl)
-        with stage("encode.join") as attrs:
+        with stage("encode.join", engine="host") as attrs:
             out.append(native.join_blocks(words_dev[off:off + need], bl,
                                           bpr))
             attrs["bytes"] = len(out[-1])
@@ -517,17 +523,27 @@ def _pack_and_assemble(jr, w: int, h: int, quality: int, scans,
                        metadata: GainMapMetadata, exif: bytes | None,
                        gm_ct: ColorTransfer, gm_cg: ColorGamut, pack) -> bytes:
     """The back half of a fused encode: one `pack` of both scans on the
-    device (``encode.dispatch``: the scan and pack launches, and on the
-    card the pack's ``encode.wait`` for its word count inside it), one
-    download (``encode.download``, with the `bytes` of the words and the
-    block lengths), the host join of each scan and the container."""
+    device (``encode.dispatch``: the scan and pack launches), the join of
+    both on the device (``encode.join``, `engine` "device": its launches),
+    on the card one wait for all of it (``encode.wait``), one download of
+    the joined scans (``encode.download``, their `bytes`, after the read of
+    their sizes) and the container."""
     with stage("encode.dispatch", what="scans"):
         words, blen = _pack_scans(scans, pack)
-    with stage("encode.download", bytes=words.nbytes + blen.nbytes):
-        blen_h = blen.cpu().numpy()
-        words_h = words.cpu().numpy().view(np.uint32)
-    base_scan, gm_scan = _join_scans(words_h, blen_h,
-                                     [lay for _, lay in scans])
+    with stage("encode.join", engine="device"):
+        out, sizes = join_kernel.join_scans(
+            words, blen, [(lay.mcus_h * lay.bpr, lay.bpr) for _, lay in scans])
+    if out.is_cuda:
+        with stage("encode.wait"):
+            torch.cuda.current_stream(out.device).synchronize()
+    with stage("encode.download") as attrs:
+        sizes = sizes.tolist()
+        if sum(sizes) > out.numel():
+            raise RuntimeError(f"join: scans of {sizes} bytes passed the "
+                               f"output's {out.numel()}")
+        attrs["bytes"] = sum(sizes)
+        out_h = out[:sum(sizes)].cpu().numpy()
+    base_scan, gm_scan = join_kernel.scan_bytes(out_h, sizes)
     return _assemble_container(jr, w, h, quality, base_scan, base_sampling,
                                icc_cg, scale, gm_scan, metadata, exif, gm_ct,
                                gm_cg)
@@ -557,7 +573,7 @@ def _encode_api0(jr, img, quality: int, exif: bytes | None, block_buffers,
 
 
 def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
-                           pack=pack_kernel.pack_scan) -> bytes:
+                           pack=pack_kernel.pack_scan_queued) -> bytes:
     """JpegR.encode_api0 on P010 input (4:2:0 base)."""
     return _encode_api0(jr, img, quality, exif, _api0_p010_block_buffers,
                         upload_p010(img, jr.device), _SAMPLING_420, pack,
@@ -565,7 +581,7 @@ def encode_api0_p010_fused(jr, img, quality: int, exif: bytes | None, *,
 
 
 def encode_api0_rgb_fused(jr, img, quality: int, exif: bytes | None, *,
-                          pack=pack_kernel.pack_scan) -> bytes:
+                          pack=pack_kernel.pack_scan_queued) -> bytes:
     """JpegR.encode_api0 on packed RGBA1010102 (u32 words) or RGBAF16
     ((H, W, 4) half floats or their u16 patterns) input (4:4:4 base): a raw
     upload, or with UHDR_TPU_WIRE set the channel wires
@@ -584,8 +600,9 @@ def encode_api0_rgb_fused(jr, img, quality: int, exif: bytes | None, *,
                         [packed], _SAMPLING_444, pack, fmt=fmt)
 
 
-def encode_api0_yuv444_10_fused(jr, img, quality: int, exif: bytes | None,
-                                *, pack=pack_kernel.pack_scan) -> bytes:
+def encode_api0_yuv444_10_fused(
+        jr, img, quality: int, exif: bytes | None, *,
+        pack=pack_kernel.pack_scan_queued) -> bytes:
     """JpegR.encode_api0 on YUV444_10 input (three u16 planes of 10-bit
     samples; 4:4:4 base)."""
     planes = [np.asarray(p, np.uint16) for p in img.planes[:3]]
@@ -645,6 +662,7 @@ def prepare_device(dev: torch.device):
         with torch.cuda.device(dev), \
                 torch.cuda.stream(torch.cuda.default_stream(dev)):
             pack_kernel.PACK_KERNEL.setup(dev)
+            join_kernel.JOIN_KERNEL.setup()
             apply_kernel.APPLY_KERNEL.tables(dev)
         torch.cuda.synchronize(dev)
         _PREPARED.add(dev)
@@ -1065,7 +1083,7 @@ def api1_scans(jr, hdr, sdr, quality: int):
 
 
 def encode_api1_fused(jr, hdr, sdr, quality: int, exif: bytes | None, *,
-                      pack=pack_kernel.pack_scan) -> bytes | None:
+                      pack=pack_kernel.pack_scan_queued) -> bytes | None:
     """JpegR.encode_api1 on the device: raw HDR + raw SDR in, JPEG_R out,
     both presets with one `pack` launch; None when the format combination
     needs the general path.  The upload, the pixel stages and a two-pass

@@ -39,8 +39,10 @@ block; its wrapper then waits for the card (an ``encode.wait`` span,
 synchronisation) and returns that prefix of the room as ``words``.  It is a
 view: the whole room (n x CAP_WORDS words, about 145 MB for a default 4K
 request against about 10 MB of live words) stays allocated for as long as
-the caller holds ``words``, so a caller that keeps the result copies it
-(the encode downloads it at once).
+the caller holds ``words``, so a caller that keeps the result copies it.
+``pack_scan_queued``, the fused encode's entry, launches the kernel alone
+and returns the whole room and blen without waiting: the join on the card
+(``join_kernel``) reads the words where they lie.
 
 ``pack_blocks`` ("v1") and ``pack_tiles`` ("v2") take the slots of
 ``slots_for_kernel``: (n, 72) int32 payloads (u32 patterns, each below
@@ -211,6 +213,22 @@ def pack_scan(stream: torch.Tensor, dc_diff: torch.Tensor,
     if stream.device.type == "cuda":
         return PACK_KERNEL(stream, dc_diff, is_luma)
     raise unsupported(f"no pack implementation for device {stream.device}")
+
+
+def pack_scan_queued(stream: torch.Tensor, dc_diff: torch.Tensor,
+                     is_luma: torch.Tensor):
+    """Dispatcher for a caller that reads the words on the device (the
+    fused encode's join, ``join_kernel``): the plain version for CPU
+    tensors; for CUDA tensors the kernel's launch alone, which returns
+    (the whole room of CAP_WORDS words a block, blen) without waiting for
+    the card or reading the word count."""
+    if stream.device.type != "cuda":
+        return pack_scan(stream, dc_diff, is_luma)
+    PACK_KERNEL.check(stream, dc_diff, is_luma)
+    scratch, blen, words = PACK_KERNEL.buffers(stream.shape[0],
+                                               stream.device)
+    PACK_KERNEL.launch(stream, dc_diff, is_luma, scratch, blen, words)
+    return words, blen
 
 
 # ---------------------------------------------------------------------------

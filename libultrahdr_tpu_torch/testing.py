@@ -26,6 +26,9 @@
   ``huffman_fault_cases``: baseline JPEGs without restart markers for the
   card's entropy decoder (``jpeg/huffman_kernel``), with the subsequence
   size each is decoded at, and streams it must refuse;
+- ``join_words`` and ``join_edge_cases``: the restart-row join's inputs
+  (``jpeg/join_kernel``), words laid out as the pack lays them, and
+  ``host_join``, its reference;
 - ``launch_ms``, ``pack_kernel_ms``, ``slot_pack_kernel_ms``: a kernel's
   time on the card without its wrapper's host work;
 - ``check_decoded_close``: the contract between two decodes of one file
@@ -701,6 +704,72 @@ def huffman_fault_cases() -> list[tuple[str, bytes]]:
     return [("truncated", d[:mid]),
             ("RST marker inside", d[:mid] + b"\xff\xd0" + d[mid:]),
             ("invalid code", d[:mid] + b"\xff\x00" * 8 + d[mid + 16:])]
+
+
+def join_words(blen: np.ndarray, rs, fill=None) -> np.ndarray:
+    """u32 words for blocks of `blen` bits laid out as the pack lays them
+    (each block from a word boundary, zeros past its end): random bits, or
+    the word `fill`."""
+    wlen = (blen.astype(np.int64) + 31) >> 5
+    total = int(wlen.sum())
+    words = (np.full(total, fill, np.uint32) if fill is not None
+             else rs.randint(0, 2 ** 32, total, dtype=np.uint64)
+             .astype(np.uint32))
+    tail = (blen % 32).astype(np.uint64)
+    cut = (wlen > 0) & (tail > 0)
+    words[(np.cumsum(wlen) - 1)[cut]] &= (
+        (0xFFFFFFFF << (32 - tail[cut])) & 0xFFFFFFFF).astype(np.uint32)
+    return words
+
+
+def host_join(words: np.ndarray, blen: np.ndarray, parts) -> list[bytes]:
+    """Each scan of a pack's output joined by ``native.join_blocks`` at its
+    word offset: the reference of the restart-row join on the card."""
+    from .jpeg import native
+    out, w0, b0 = [], 0, 0
+    for nb, bpr in parts:
+        bl = blen[b0:b0 + nb]
+        need = int(((bl.astype(np.int64) + 31) >> 5).sum())
+        out.append(native.join_blocks(words[w0:w0 + need],
+                                      bl.astype(np.uint16), bpr))
+        w0, b0 = w0 + need, b0 + nb
+    return out
+
+
+def join_edge_cases() -> list[tuple[str, np.ndarray, np.ndarray, list]]:
+    """(name, u32 words, blen, parts) inputs of the restart-row join
+    (``jpeg/join_kernel``; parts [(blocks, blocks a row), ...] of scans
+    packed back to back): random lengths up to a block's 1,984 bits,
+    lengths that are multiples of 8 and of 32, one-block rows, a single
+    row, rows whose pad byte is 0xFF, all-ones words (dense stuffing),
+    blocks of 4-11 bits (many blocks a word), blocks of no bits, two
+    scans back to back, and 19 rows (the RST markers cycle)."""
+    cases = [  # name, parts, blen(rs), fill
+        ("random", [(35, 7)], lambda rs: rs.randint(1, 1985, 35), None),
+        ("multiples of 8 and 32", [(24, 6)], lambda rs: rs.choice(
+            [8, 16, 24, 32, 64, 96, 256, 1984], 24), None),
+        ("one-block rows", [(9, 1)], lambda rs: rs.randint(1, 200, 9), None),
+        ("a single row", [(13, 13)], lambda rs: rs.randint(1, 300, 13),
+         None),
+        ("pad bytes 0xFF", [(12, 3)], lambda rs: np.array([13, 7, 9] * 4),
+         0xFFFFFFFF),
+        ("all ones", [(30, 5)], lambda rs: rs.randint(1, 1985, 30),
+         0xFFFFFFFF),
+        ("short blocks", [(120, 40)], lambda rs: rs.randint(4, 12, 120),
+         None),
+        ("empty blocks", [(24, 8)],
+         lambda rs: rs.randint(0, 40, 24) * (rs.rand(24) < 0.6), None),
+        ("two scans", [(24, 6), (15, 3)], lambda rs: rs.randint(1, 700, 39),
+         None),
+        ("19 rows of markers", [(38, 2)], lambda rs: rs.randint(1, 90, 38),
+         None),
+    ]
+    out = []
+    for i, (name, parts, blen, fill) in enumerate(cases):
+        rs = np.random.RandomState(21 + i)
+        b = blen(rs).astype(np.int64)
+        out.append((name, join_words(b, rs, fill), b, parts))
+    return out
 
 
 def launch_ms(launch, reps: int = 20, before=None) -> float:

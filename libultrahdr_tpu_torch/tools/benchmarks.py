@@ -187,7 +187,7 @@ ROW_NOTES = {
 
 def kernel_counters() -> dict:
     """The launch counters of the port's kernel wrappers, by name."""
-    from ..jpeg import dct, huffman_kernel as hk
+    from ..jpeg import dct, huffman_kernel as hk, join_kernel as jk
     from ..jpeg import pack_kernel as pk
     from ..ops import apply_kernel as ak
     from ..ops import stitch_kernel as sk
@@ -199,7 +199,7 @@ def kernel_counters() -> dict:
             "wire_unslice": wk.UNSLICE_KERNEL,
             "down_pack": wk.DOWN_PACK_KERNEL,
             "stitch": sk.STITCH_KERNEL,
-            "huffman": hk.HUFFMAN_KERNEL}
+            "huffman": hk.HUFFMAN_KERNEL, "join": jk.JOIN_KERNEL}
 
 
 def zero_launches() -> None:

@@ -8,24 +8,27 @@ guards where the sanitizer cannot attach.
         [--fill 0xA5]
     python -m libultrahdr_tpu_torch.tools.sanitize_kernels --repeat N
 
-The ten kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
+The eleven kernels (``KERNELS``): the scan pack (``csrc/pack_kernel.cu``),
 the block and tile packs (``csrc/block_pack_kernel.cu``), the apply's
 HLG/PQ and LINEAR branches (``csrc/apply_kernel.cu``), the scan build
 (``csrc/dct_kernel.cu``), the wire un-slice and the download pack
 (``csrc/wire_kernel.cu``), the K-batch stitch
-(``csrc/stitch_kernel.cu``) and the entropy decode of scans without
-restart markers (``csrc/huffman_kernel.cu``).  Their cases are
+(``csrc/stitch_kernel.cu``), the entropy decode of scans without
+restart markers (``csrc/huffman_kernel.cu``) and the restart-row join
+(``csrc/join_kernel.cu``).  Their cases are
 chip_smoke's phase 3, 18a and 22 edge cases ("small": one MCU, MCU grids
 with ragged edges, block counts on and off the packs' tiles, an
 overflowing tile, worst-case blocks, grid ties, NaN and out-of-range
 values, 2-8-bit wires, escape lists at and over their cap,
 ``testing.stitch_edge_cases``, the first ``testing.huffman_edge_cases``
-and every ``huffman_fault_cases`` stream) and the 4K default shapes
+and every ``huffman_fault_cases`` stream, ``testing.join_edge_cases``)
+and the 4K default shapes
 ("4k": the 3840x2160 base and 3-channel map scans, 583,200 blocks in one
 pack, the 4K apply, wires of 8,294,400 samples, a stitch of 8 images'
-rooms of 583,200 blocks, a 3840x2160 4:2:0 scan to decode).  A stitch is
-compared on its live words, the words its output defines; an entropy
-decode on its status word, and on its planes where that is 0.
+rooms of 583,200 blocks, a 3840x2160 4:2:0 scan to decode, the join of
+the 4K pack's room).  A stitch is compared on its live words, the words
+its output defines; an entropy decode on its status word, and on its
+planes where that is 0; a join on its sizes and the bytes they define.
 
 ``--tool T`` (memcheck, racecheck, synccheck, initcheck: the process runs
 under ``compute-sanitizer --tool T``) runs the small cases, memcheck also
@@ -61,7 +64,7 @@ import numpy as np
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 KERNELS = ("pack_scan", "pack_blocks", "pack_tiles", "apply_gainmap",
            "apply_gainmap_linear", "forward_dct", "wire_unslice",
-           "down_pack", "stitch", "huffman")
+           "down_pack", "stitch", "huffman", "join")
 
 
 def tensors_equal(got, want, what: str):
@@ -96,6 +99,15 @@ def huffman_equal(got, want, what: str):
     if int(ws) == 0:
         tensors_equal(tuple(p.cpu() for p in gp),
                       tuple(p.cpu() for p in wp), what)
+
+
+def join_equal(got, want, what: str):
+    """The join's (bytes, sizes) in host memory: the sizes equal, and the
+    bytes they define (the rest of the kernel's output is undefined)."""
+    (gb, gs), (wb, ws) = got, want
+    tensors_equal((gs.cpu(),), (ws.cpu(),), f"{what}, sizes")
+    total = int(ws.sum())
+    tensors_equal((gb[:total].cpu(),), (wb[:total].cpu(),), what)
 
 
 def as_tuple(x):
@@ -460,19 +472,60 @@ def _huffman_cases(dev, big: bool):
                huffman_equal)
 
 
+def _join_cases(dev, big: bool):
+    import functools
+    import torch
+    from .. import testing
+    from ..jpeg import device_entropy, join_kernel as jk, pack_kernel as pk
+
+    @functools.lru_cache(None)
+    def room():
+        """The 4K default request's pack output (room, blen, parts), as
+        the encode joins it, and the live words on the host."""
+        ins, parts = [], []
+        for sampling, mw, mh in ((((2, 2), (1, 1), (1, 1)), 240, 135),
+                                 (((1, 1), (1, 1), (1, 1)), 480, 270)):
+            layout = device_entropy.scan_layout(sampling, mw, mh)
+            planes = [torch.from_numpy(p).to(dev)
+                      for p in testing.coefficient_planes(layout, seed=mw)]
+            ins.append(device_entropy.stream_inputs(planes, layout))
+            parts.append((mh * layout.bpr, layout.bpr))
+        words, blen = pk.pack_scan_queued(*(torch.cat(p) for p in zip(*ins)))
+        total = int(((blen.long() + 31) >> 5).sum())
+        return words, blen, parts, words[:total].cpu()
+
+    if big:
+        yield ("join", "the 4K default pack's room, both scans",
+               lambda: jk.join_scans(*room()[:3]),
+               lambda: jk.join_scans_plain(room()[3], room()[1].cpu(),
+                                           room()[2]),
+               join_equal)
+        return
+    # the plain version runs on the CPU, as the entropy decode's does
+    for name, w, b, parts in testing.join_edge_cases():
+        words = torch.from_numpy(w.view(np.int32))
+        blen = torch.from_numpy(b.astype(np.int32))
+        yield ("join", name,
+               lambda w=words.to(dev), b=blen.to(dev), p=parts:
+               jk.join_scans(w, b, p),
+               lambda w=words, b=blen, p=parts: jk.join_scans_plain(w, b, p),
+               join_equal)
+
+
 def cases(dev, shapes: str = "small"):
     """Every case at `shapes` ("small", "4k" or "all")."""
     for big in {"small": (False,), "4k": (True,),
                 "all": (False, True)}[shapes]:
         for gen in (_pack_cases, _apply_cases, _scan_cases, _wire_cases,
-                    _stitch_cases, _huffman_cases):
+                    _stitch_cases, _huffman_cases, _join_cases):
             yield from gen(dev, big)
 
 
 def launch_counts() -> dict:
     """Each kernel's launch count so far (the apply's LINEAR branch
     apart from its HLG/PQ one)."""
-    from ..jpeg import dct, huffman_kernel as hk, pack_kernel as pk
+    from ..jpeg import dct, huffman_kernel as hk, join_kernel as jk
+    from ..jpeg import pack_kernel as pk
     from ..ops import apply_kernel as ak, stitch_kernel as sk
     from ..ops import wire_kernel as wk
     linear = ak.APPLY_KERNEL.linear_launches
@@ -485,7 +538,8 @@ def launch_counts() -> dict:
             "wire_unslice": wk.UNSLICE_KERNEL.launches,
             "down_pack": wk.DOWN_PACK_KERNEL.launches,
             "stitch": sk.STITCH_KERNEL.launches,
-            "huffman": hk.HUFFMAN_KERNEL.launches}
+            "huffman": hk.HUFFMAN_KERNEL.launches,
+            "join": jk.JOIN_KERNEL.launches}
 
 
 def run(dev, shapes: str = "small", repeat: int = 1, log=print) -> dict:

@@ -521,7 +521,7 @@ def test_stage_timers():
         enc.encode()
         assert calls() == {"encode": 1, "encode.upload": 1,
                            "encode.dispatch": 2, "encode.download": 1,
-                           "encode.join": 2, "encode.assemble": 1}
+                           "encode.join": 1, "encode.assemble": 1}
         profiling.clear()
         fused.encode_api0_p010_pipelined(
             port.JpegR(device="cpu"), [testing.photo_p010(W, H, seed=s)

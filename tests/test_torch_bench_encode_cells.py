@@ -130,7 +130,7 @@ def test_api0_bytes_do_not_depend_on_the_preset():
 def test_cell_metrics_have_readers(cell):
     names = [m["name"] for m in BENCH["per_layer"]
              if cell in m.get("workloads", [])]
-    assert len(names) == 9
+    assert len(names) == 10
     for name in names:
         assert callable(harness.metric_reader(name))
     w = next(w for w in BENCH["workloads"] if w["name"] == cell)

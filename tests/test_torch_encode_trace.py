@@ -25,7 +25,7 @@ SETTINGS = {"android": (ColorTransfer.HLG, 4, False, EncPreset.REALTIME, 85),
             "libdefault": (ColorTransfer.PQ, 1, True,
                            EncPreset.BEST_QUALITY, 95)}
 CHAIN = {"encode": 1, "encode.upload": 1, "encode.dispatch": 2,
-         "encode.download": 1, "encode.join": 2, "encode.assemble": 1}
+         "encode.join": 1, "encode.download": 1, "encode.assemble": 1}
 
 
 @pytest.fixture
@@ -87,11 +87,12 @@ def test_encode_records_the_chain(setting, empty):
         assert s is root or by_id[s.parent_id] is root
     order = [s.name for s in sorted(got, key=lambda s: s.start_ns)][1:]
     assert order == ["encode.upload", "encode.dispatch", "encode.dispatch",
-                     "encode.download", "encode.join", "encode.join",
-                     "encode.assemble"]
+                     "encode.join", "encode.download", "encode.assemble"]
     assert [s.attrs["what"] for s in sorted(
         (s for s in got if s.name == "encode.dispatch"),
         key=lambda s: s.start_ns)] == ["pixels", "scans"]
+    (join,) = [s for s in got if s.name == "encode.join"]
+    assert join.attrs == {"engine": "device"}
 
 
 @pytest.mark.parametrize("setting", sorted(SETTINGS))
@@ -114,8 +115,8 @@ def test_byte_counters(setting, empty, monkeypatch):
     assert blen.numel() == n_blocks
     assert words.numel() == device_entropy.total_words(blen.numpy())
     assert got["encode.upload"] == [W * H * 2 + (H // 2) * W * 2]
-    assert got["encode.download"] == [4 * words.numel() + 4 * n_blocks]
-    assert got["encode.join"] == scan_sizes(data)
+    assert got["encode.download"] == [sum(scan_sizes(data))]
+    assert got["encode.join"] == [None]
     assert got["encode.assemble"] == [len(data)]
 
 
@@ -218,9 +219,11 @@ def test_d2h_reader(empty):
 
 @pytest.mark.card
 def test_card_encode_waits_inside_the_dispatch(empty):
-    """On the card the pack's wait for its word count is an
-    ``encode.wait`` span inside the scans' ``encode.dispatch``, and the
-    bytes are those of the untraced encode."""
+    """On the card the request's one wait for the card is an
+    ``encode.wait`` span under the request's ``encode`` span, after the
+    scans' ``encode.dispatch`` and the join's launches (``encode.join``,
+    `engine` "device") and before the download of the joined scans, and
+    the bytes are those of the untraced encode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     want = encoder("libdefault", "cuda").encode()
@@ -230,6 +233,12 @@ def test_card_encode_waits_inside_the_dispatch(empty):
     spans = profiling.spans()
     (wait,) = [s for s in spans if s.name == "encode.wait"]
     parent = next(s for s in spans if s.span_id == wait.parent_id)
-    assert parent.name == "encode.dispatch"
-    assert parent.attrs == {"what": "scans"}
-    assert parent.start_ns <= wait.start_ns <= wait.end_ns <= parent.end_ns
+    assert parent.name == "encode"
+    (scans,) = [s for s in spans if s.name == "encode.dispatch"
+                and s.attrs == {"what": "scans"}]
+    (join,) = [s for s in spans if s.name == "encode.join"]
+    (down,) = [s for s in spans if s.name == "encode.download"]
+    assert join.attrs == {"engine": "device"}
+    assert scans.end_ns <= join.start_ns <= join.end_ns <= wait.start_ns
+    assert wait.end_ns <= down.start_ns
+    assert down.attrs["bytes"] == sum(scan_sizes(got))
